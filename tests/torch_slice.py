@@ -1,0 +1,67 @@
+"""Shared by the tests that hold the PyTorch port's decode_to_device
+(zflac_tpu_torch) to the JAX package's, stream by stream, on the CPU.
+
+The ported slice is every corpus stream (zflac_tpu.testing.make_corpus)
+with two channels and at most 16 bits. Its streams are grouped here by
+what each exercises, and each group has its own test file, so that the
+groups run in parallel under pytest-xdist's per-file scheduling.
+test_torch_device.py checks that the groups cover the slice exactly.
+"""
+
+import numpy as np
+
+# Subframe types and their parameters.
+SUBFRAME_STREAMS = (
+    "constant heavy", "verbatim noise", "escaped partitions",
+    "fixed order 0", "fixed order 1", "fixed order 2", "fixed order 3",
+    "fixed order 4", "lpc order 1", "lpc order 2", "lpc order 8",
+    "lpc order 16", "lpc order 32", "lpc precision 8", "lpc precision 15",
+    "partition order 0", "partition order 8",
+)
+# Stereo decorrelation, bit depths, wasted bits and STREAMINFO fields.
+FORMAT_STREAMS = (
+    "stereo independent", "stereo left_side", "stereo side_right",
+    "stereo mid_side", "bps 8", "bps 12", "bps 16", "bps from streaminfo",
+    "channels 2", "wasted bits", "uncommon samplerate", "unknown length",
+)
+# Block sizes (padded to Bp 128-4608) and variable blocking.
+BLOCKING_STREAMS = (
+    "blocksize 16", "blocksize 192", "blocksize 254", "blocksize 512",
+    "blocksize 576", "blocksize 725", "blocksize 1000", "blocksize 1152",
+    "blocksize 1937", "blocksize 2304", "blocksize 4096", "blocksize 4608",
+    "uncommon blocksize", "variable blocksize",
+)
+
+
+def assert_same(dd, ref, verify_md5=True):
+    """Same frames, block sizes and PCM (host and device assembly, both
+    normalization domains) as the JAX DeviceDecoded `ref`. Returns the
+    port's host result."""
+    assert dd is not None and ref is not None
+    assert dd.num_frames == ref.num_frames
+    assert dd.total_samples == ref.total_samples
+    for a, b in zip(dd.block_sizes, ref.block_sizes, strict=True):
+        np.testing.assert_array_equal(a, b)
+    got = dd.to_host(verify_md5=verify_md5)
+    want = ref.to_host(verify_md5=verify_md5)
+    np.testing.assert_array_equal(got.interleaved, want.interleaved)
+    assert (got.channels, got.sample_rate, got.bits_per_sample) == (
+        want.channels, want.sample_rate, want.bits_per_sample)
+    for normalized in (True, False):
+        np.testing.assert_array_equal(
+            dd.interleaved_device(normalized).numpy(),
+            np.asarray(ref.interleaved_device(normalized)))
+    return got
+
+
+def check_stream(name, corpus):
+    """decode_to_device on the CPU == zflac_tpu.decode_to_device, with
+    the stream MD5 verified, and == the encoder's input."""
+    import zflac_tpu
+    import zflac_tpu_torch
+    from conftest import expected_output
+
+    data, pcm, _sr, bps = corpus[name]
+    dd = zflac_tpu_torch.decode_to_device(data, device="cpu")
+    got = assert_same(dd, zflac_tpu.decode_to_device(data))
+    np.testing.assert_array_equal(got.interleaved, expected_output(pcm, bps))

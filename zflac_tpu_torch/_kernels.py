@@ -1,0 +1,149 @@
+"""Build, bind and launch the port's CUDA kernels (csrc/*.cu).
+
+The sources have a plain C interface (one `extern "C"` launcher per
+kernel, no PyTorch headers), so nvcc builds them in seconds into one
+shared library that ctypes loads, the way the host scan's
+libzflac_index.so is loaded (zflac_tpu/index/native_indexer.py). The
+library is built at first use into build/zflac_tpu_torch/ under the
+checkout and rebuilt when any source is newer than it.
+
+Every launch goes through `launch`: it passes PyTorch's current stream,
+raises on the CUDA status the launcher returns, and counts the launch
+in `launches` (kernel name -> count), which the smoke run reads to show
+that the main path went through each kernel. Nothing is built or
+loaded until a CUDA tensor reaches a kernel wrapper.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "zflac_tpu_torch")
+_SO = os.path.join(BUILD_DIR, "libzflac_tpu_torch.so")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Kernel name -> (C launcher, argument types before (device, stream)).
+_LAUNCHERS = {
+    "rice16": ("zft_rice16_rows", (_P, _P, _P, _I, _I, _I)),
+    "lpc2": ("zft_lpc2", (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I)),
+    "packtail": ("zft_packtail", (_P, _I, _I, _P, _P, _P, _P, _I, _I)),
+}
+
+launches: collections.Counter = collections.Counter()
+
+_lock = threading.Lock()
+_lib = None
+
+
+def find_nvcc() -> str:
+    """nvcc from CUDA_HOME, then PATH, then the toolkit's default
+    install location."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        cands.append(on_path)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+        "/usr/local/cuda/bin); the CUDA kernels cannot be built")
+
+
+def build(force: bool = False) -> str:
+    """Compile csrc/*.cu into the shared library unless it is newer
+    than every source. Returns the library path; raises with nvcc's
+    stderr when the build fails."""
+    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    if not force and os.path.exists(_SO) and \
+            os.path.getmtime(_SO) >= max(os.path.getmtime(s) for s in srcs):
+        return _SO
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stderr}")
+    os.replace(tmp, _SO)
+    return _SO
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for cname, argtypes in _LAUNCHERS.values():
+                fn = getattr(lib, cname)
+                fn.argtypes = [*argtypes, _I, _P]
+                fn.restype = _I
+            lib.zft_error_string.argtypes = [_I]
+            lib.zft_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, device, *args) -> None:
+    """Launch kernel `name` on `device`'s current PyTorch stream with
+    launcher arguments `args` (tensor data pointers and ints), raise on
+    a CUDA error, and count the launch."""
+    import torch
+    lib = library()
+    cname, _ = _LAUNCHERS[name]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, cname)(*args, device.index, stream)
+    if rc != 0:
+        msg = lib.zft_error_string(rc).decode()
+        raise RuntimeError(f"{cname}: CUDA error {rc} ({msg})")
+    launches[name] += 1
+
+
+def route(*tensors) -> str:
+    """'cpu' when every tensor lies on the CPU (the wrapper then runs
+    its plain PyTorch version), 'cuda' when all lie on one CUDA device
+    (the wrapper launches its kernel). Anything else raises: there is
+    no fallback from one to the other."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(
+            f"tensors on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type in ("cpu", "cuda"):
+        return dev.type
+    raise ValueError(f"no kernel or plain version for device {dev}")
+
+
+def check(t, name: str, dtype, shape=None, inner_contiguous=False) -> None:
+    """Raise unless `t` has `dtype`, `shape` (when given) and a layout
+    the kernel takes: fully contiguous, or with `inner_contiguous` a
+    2-D view whose rows are contiguous (any row stride)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if inner_contiguous:
+        if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1) or \
+                t.stride(0) < t.shape[1]:
+            raise ValueError(f"{name}: rows must be contiguous, strides "
+                             f"{t.stride()}")
+    elif not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

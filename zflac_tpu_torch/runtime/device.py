@@ -1,0 +1,549 @@
+"""Device-resident decode, pack2 path, in PyTorch (counterpart of
+zflac_tpu/runtime/device.py).
+
+`decode_to_device` turns compressed FLAC bytes into PCM in device
+memory. Phase 1 is the host C++ scan (`pack2_range`,
+zflac_tpu/index/native_indexer.py), shared with the JAX package: it
+walks the serial bitstream once and writes one int32 plan buffer per
+chunk. Phase 2 uploads that buffer with one pinned, stream-ordered
+host-to-device copy and reconstructs the chunk on the device:
+
+  rice16 kernel -> patch scatter, warm-up splice, live mask ->
+  per class: const broadcast | verbatim | fixed cumsums | lpc2 kernel
+  -> stack + transpose -> packtail kernel -> [Fp, Bp, 2] PCM.
+
+The three kernels are hand-written CUDA (csrc/); the ops between them
+are plain tensor ops, as XLA runs them in the JAX package. On CPU
+tensors every kernel wrapper runs its plain PyTorch version instead.
+
+Slice covered: stereo streams in an 8- or 16-bit container. Other
+channel counts, the 32-bit container (17-32 bps) and 33-bit side
+channels raise NotImplementedError from `reconstruct_pack2`.
+
+This module imports no JAX: the jax-free host pieces of the JAX
+package's runtime (chunk scan, frame estimate, class caps, MD5 check,
+stop cut) are copied here, not imported.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from zflac_tpu import format as fmt
+from zflac_tpu.bitio import BitReader
+from zflac_tpu.errors import InconsistentParameters, InvalidChecksum
+from zflac_tpu.index import native_indexer
+from zflac_tpu.oracle import parse_metadata
+from zflac_tpu.result import DecodedFLAC, container_dtype
+
+from ..ops.lpc2 import lpc2_reconstruct
+from ..ops.packtail import packtail
+from ..ops.rice16 import rice16_unpack_rows
+from .reconstruct import fixed_integrate_t
+
+_HIST = {"lpc8": 8, "lpc16": 16, "lpc32": 32}
+
+
+@dataclass(frozen=True)
+class Pack2Geom:
+    """Plain-int geometry of one pack2 chunk buffer: the fields of
+    Pack2Chunk.spec_key(), with the section offsets as a dict."""
+    Fp: int
+    Sp: int
+    Bp: int
+    GPB: int
+    W: int
+    NGp: int
+    n_patch_p: int
+    C: int
+    classes: tuple          # ((class name, padded member count), ...)
+    off: dict               # section name -> int32 word offset
+
+    @classmethod
+    def of(cls, ck) -> "Pack2Geom":
+        (Fp, Sp, Bp, GPB, W, NGp, n_patch_p, C, classes,
+         off_items) = ck.spec_key()
+        return cls(Fp, Sp, Bp, GPB, W, NGp, n_patch_p, C, classes,
+                   dict(off_items))
+
+    @property
+    def Ssort(self) -> int:
+        return sum(np_ for _, np_ in self.classes)
+
+    def sect(self, buf, name: str, n: int):
+        """View of section `name`'s first n words of the buffer."""
+        return buf.narrow(0, self.off[name], n)
+
+
+def chunk_to_torch(ck, device):
+    """Upload a Pack2Chunk's device buffer: returns (int32 tensor on
+    `device`, Pack2Geom). For a CUDA device the copy goes through
+    pinned memory, non-blocking on the current stream, so it orders
+    before the kernels launched after it."""
+    device = torch.device(device)
+    host = torch.from_numpy(np.ascontiguousarray(ck.device_buf))
+    if device.type == "cuda":
+        buf = host.pin_memory().to(device, non_blocking=True)
+    else:
+        buf = host.to(device, copy=True)
+    return buf, Pack2Geom.of(ck)
+
+
+def _patch_rows_layout(out, pidx, pval):
+    """Scatter the scan's patch values into the rice16 output
+    [(GPB+1)*G2, Ssort] in place (flat index = time * Ssort + lane).
+    Pad entries repeat the sentinel, the first element of the dead
+    row, so duplicate writes land where nothing reads; the clamp keeps
+    a corrupt buffer's indices inside the array."""
+    flat = out.view(-1)
+    idx = torch.clamp(pidx, 0, flat.numel() - 1).long()
+    flat.index_put_((idx,), pval)
+    return out
+
+
+def _check_slice(geom: Pack2Geom, container_bits: int) -> None:
+    if "warm_hi" in geom.off:
+        raise NotImplementedError(
+            "33-bit side channels (32-bit stereo with decorrelation) are "
+            "not ported yet: ROADMAP.md §1, '33-bit side channels'")
+    if container_bits == 32:
+        raise NotImplementedError(
+            "the 32-bit container (17-32 bps, lpc2w kernel) is not ported "
+            "yet: ROADMAP.md §1, '24-bit'")
+    if geom.C != 2 or container_bits not in (8, 16):
+        raise NotImplementedError(
+            f"{geom.C}-channel streams (general tail) are not ported yet: "
+            "ROADMAP.md §1, 'The rest of the int32 pack2 path'")
+
+
+def residual_rows(buf, geom: Pack2Geom):
+    """Stage 1 of reconstruct_pack2: the time-major rows [Bp, Ssort]
+    int32 (warm-ups spliced in, residuals after, zero past each
+    subframe's block size) from the rice16 kernel and the scan's
+    patches. The JAX package's stage="rows"."""
+    Bp, W, NGp, Ssort = geom.Bp, geom.W, geom.NGp, geom.Ssort
+    sect = geom.sect
+    win = sect(buf, "win", W * NGp).view(W, NGp)
+    meta = sect(buf, "meta", NGp)
+    warm_t = sect(buf, "warm", Ssort * 32).view(32, Ssort)
+    warmlen = sect(buf, "warmlen", Ssort)
+    bssub = sect(buf, "bssub", Ssort)
+    pidx = sect(buf, "pidx", geom.n_patch_p)
+    pval = sect(buf, "pval", geom.n_patch_p)
+
+    # Patches never target the warm region (every patch position is
+    # >= order), so the splice comes after them. warmlen is 1 (const)
+    # or the order (<= 32), so the splice touches the first 32 rows.
+    out = rice16_unpack_rows(win, meta, Ssort=Ssort)
+    _patch_rows_layout(out, pidx, pval)
+    rows_t = out[:Bp]
+    row = torch.arange(Bp, device=buf.device)[:, None]
+    rows_t[:32] = torch.where(row[:32] < warmlen[None, :], warm_t,
+                              rows_t[:32])
+    rows_t.masked_fill_(row >= bssub[None, :], 0)
+    return rows_t
+
+
+def _class_slices(geom: Pack2Geom):
+    """(class name, its static lane slice of the sorted subframes)."""
+    base = 0
+    for name, np_ in geom.classes:
+        yield name, slice(base, base + np_)
+        base += np_
+
+
+def lpc_class_inputs(rows_t, buf, geom: Pack2Geom) -> dict:
+    """The lpc2 kernel's arguments for each LPC class of the chunk:
+    class name -> (rows [Bp, n], cfwd [hist, n], shift [n], order [n])
+    over the class's lane slice."""
+    Ssort = geom.Ssort
+    order = geom.sect(buf, "order", Ssort)
+    shift = geom.sect(buf, "shift", Ssort)
+    cfwd_t = geom.sect(buf, "cfwd", Ssort * 32).view(32, Ssort)
+    return {name: (rows_t[:, sl], cfwd_t[:_HIST[name], sl], shift[sl],
+                   order[sl])
+            for name, sl in _class_slices(geom) if name in _HIST}
+
+
+def sorted_stack(rows_t, buf, geom: Pack2Geom):
+    """Stage 2 of reconstruct_pack2: every class reconstructed on its
+    static lane slice (const broadcast, verbatim, fixed cumsums, the
+    lpc2 kernel), stacked with one dead zero lane (the `inv` sentinel
+    for padded stream slots) and transposed to [Ssort + 1, Bp] for the
+    per-frame row gather. The JAX package's stage="transpose"."""
+    Bp, Ssort = geom.Bp, geom.Ssort
+    order = geom.sect(buf, "order", Ssort)
+    seeds_t = geom.sect(buf, "seeds", Ssort * 4).view(4, Ssort)
+    lpc = lpc_class_inputs(rows_t, buf, geom)
+    seg_out = []
+    for name, sl in _class_slices(geom):
+        rc = rows_t[:, sl]                        # [Bp, n] time-major
+        if name == "const":
+            seg_out.append(rc[0:1].expand(Bp, rc.shape[1]))
+        elif name == "verbatim":
+            seg_out.append(rc)
+        elif name == "fixed":
+            seg_out.append(fixed_integrate_t(rc, order[sl], seeds_t[:, sl]))
+        else:
+            seg_out.append(lpc2_reconstruct(*lpc[name]))
+    seg_out.append(torch.zeros((Bp, 1), dtype=torch.int32,
+                               device=buf.device))
+    return torch.cat(seg_out, dim=1).t().contiguous()
+
+
+def tail_inputs(buf, geom: Pack2Geom):
+    """The packtail kernel's per-frame sections: (inv, wasted,
+    chcode)."""
+    return (geom.sect(buf, "inv", geom.Sp),
+            geom.sect(buf, "wasted", geom.Sp),
+            geom.sect(buf, "chcode", geom.Fp))
+
+
+def reconstruct_pack2(buf, geom: Pack2Geom, *, container_bits: int):
+    """One uploaded pack2 chunk -> container-width stereo PCM
+    [Fp, Bp, 2] (int16 or int8) on the buffer's device. Counterpart of
+    the JAX package's _reconstruct_pack2_core on its stereo 8/16-bit
+    path."""
+    _check_slice(geom, container_bits)
+    rows_t = residual_rows(buf, geom)
+    stack = sorted_stack(rows_t, buf, geom)
+    packed = packtail(stack, *tail_inputs(buf, geom), Fp=geom.Fp,
+                      container_bits=container_bits)
+    cdtype = torch.int16 if container_bits == 16 else torch.int8
+    return packed.view(cdtype).view(geom.Fp, geom.Bp, 2)
+
+
+@dataclass
+class DeviceDecoded:
+    """Device-resident decode result: per-chunk PCM tensors.
+
+    chunks[i] is [Fp, Bp, C] in the container dtype; frame f of chunk i
+    holds block_sizes[i][f] valid samples. Values are pre-normalization
+    (the MD5 domain); the normalization shift applies on export."""
+    channels: int
+    sample_rate: int
+    bits_per_sample: int
+    total_samples: int
+    device: torch.device
+    chunks: list = field(default_factory=list)
+    num_frames: list = field(default_factory=list)
+    block_sizes: list = field(default_factory=list)
+    md5: bytes = b""
+    stats: dict = field(default_factory=dict)
+
+    def synchronize(self):
+        """Wait until every chunk's reconstruction has finished."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def interleaved_device(self, normalized: bool = True):
+        """The decoded stream as one device tensor [total_samples, C]
+        (container dtype). Constant-blocksize chunks assemble by slices
+        and one concatenation; variable blocking gathers frame rows by
+        an index. `normalized` applies the container-MSB shift
+        (zflac.zig:287-306); False keeps the MD5 domain."""
+        C = self.channels
+        parts = []
+        for pcm, F, bs in zip(self.chunks, self.num_frames,
+                              self.block_sizes):
+            if F == 0:
+                continue
+            if np.all(bs == bs[0]):
+                n = int(bs.sum())
+                parts.append(pcm[:F, :int(bs[0]), :].reshape(-1, C)[:n])
+            else:
+                Bp = pcm.shape[1]
+                idx = np.concatenate(
+                    [f * Bp + np.arange(b) for f, b in enumerate(bs)])
+                parts.append(pcm.reshape(-1, C)[
+                    torch.as_tensor(idx, device=pcm.device)])
+        if parts:
+            out = torch.cat(parts, dim=0)
+        else:
+            dtype = getattr(torch, np.dtype(
+                container_dtype(self.bits_per_sample)).name)
+            out = torch.zeros((0, C), dtype=dtype, device=self.device)
+        shift = fmt.normalization_shift(self.bits_per_sample)
+        if normalized and shift:
+            out = out << shift
+        return out
+
+    def to_host(self, verify_md5: bool = True) -> DecodedFLAC:
+        """Interleaved host PCM (the reference's output contract),
+        with the stream MD5 verified (raises InvalidChecksum) and the
+        bit-depth normalization applied (zflac.zig:267-306)."""
+        C = self.channels
+        out = np.empty(self.total_samples * C,
+                       dtype=container_dtype(self.bits_per_sample))
+        at = 0
+        for pcm_dev, F, bs in zip(self.chunks, self.num_frames,
+                                  self.block_sizes):
+            pcm = pcm_dev[:F].cpu().numpy()
+            if F and np.all(bs == bs[0]):
+                part = pcm[:, :bs[0], :].reshape(-1)[:bs.sum() * C]
+                out[at:at + len(part)] = part
+                at += len(part)
+            else:
+                for f in range(F):
+                    n = bs[f] * C
+                    out[at:at + n] = pcm[f, :bs[f], :].reshape(-1)
+                    at += n
+        out = out[:at]
+        if verify_md5 and self.md5:
+            if not verify_stream_md5(out, self.bits_per_sample, self.md5):
+                raise InvalidChecksum("stream MD5 mismatch")
+        shift = fmt.normalization_shift(self.bits_per_sample)
+        if shift:
+            out = out << shift
+        return DecodedFLAC(
+            channels=C, sample_rate=self.sample_rate,
+            bits_per_sample=self.bits_per_sample, interleaved=out,
+            stats=dict(self.stats))
+
+
+def verify_stream_md5(interleaved: np.ndarray, bps: int,
+                      expected: bytes) -> bool:
+    """MD5 over the smallest-whole-byte little-endian sample bytes
+    (zflac.zig:267-277)."""
+    nbytes = fmt.md5_bytes_per_sample(bps)
+    if nbytes == 3:
+        raw = interleaved.astype("<i4").tobytes()
+        raw = b"".join(raw[i:i + 3] for i in range(0, len(raw), 4))
+    else:
+        raw = interleaved.astype(f"<i{nbytes}", copy=False).tobytes()
+    return hashlib.md5(raw).digest() == expected
+
+
+def _bucket_block(b: int) -> int:
+    return max(128, -(-b // 128) * 128)
+
+
+def estimate_total_frames(data: bytes, pos: int, info,
+                          check_crc: bool = False):
+    """Frame-count estimate for chunk sizing: from a nonzero
+    STREAMINFO total, else a probe scan of the first ~64 frames
+    extrapolated by measured bytes/frame. Returns an int >= 1, or None
+    when even the probe declines."""
+    nominal = max(info.min_block_size, 16)
+    if info.total_samples:
+        return -(-info.total_samples // nominal)
+    probe = native_indexer.pack2_range(data, pos, len(data), info,
+                                       check_crc=check_crc, max_frames=64)
+    if probe is None or probe.F == 0:
+        return None
+    if probe.landed >= len(data):
+        return probe.F
+    bpf = max(1, (probe.landed - pos) // probe.F)
+    return max(probe.F, -(-(len(data) - pos) // bpf))
+
+
+def class_caps(cks):
+    """Union class capacities (in PACK2_CLASSES order), patch capacity
+    and wide flag over a chunk list: the force_* inputs that make a
+    re-scan of each chunk produce one identical geometry."""
+    caps = {}
+    for ck in cks:
+        for name, cn, _ in ck.classes:
+            caps[name] = max(caps.get(name, 0), cn)
+    cnp = [caps.get(n, 0) for n in native_indexer.PACK2_CLASSES]
+    pnp = max([ck.n_patch_p for ck in cks] + [1])
+    wide = any(ck.wide for ck in cks)
+    return cnp, pnp, wide
+
+
+def scan_pack2_chunks(data: bytes, pos: int, info, chunk_frames: int,
+                      Bp: int, check_crc: bool, workers: int = 0):
+    """Scan the stream into pack2 chunks, in parallel across byte
+    ranges split at sync-scan anchors (CRC-validated frame starts); the
+    ctypes scan releases the GIL, so the C++ scans overlap. The chunk
+    chain is verified (each range must start where the previous one
+    landed); an anchor miss, a decline inside a range or a chain break
+    falls back to one serial scan.
+
+    Returns a list of (start_byte, Pack2Chunk), or None (decline)."""
+    def seq(a, stop):
+        out = []
+        p = a
+        force_w = 0
+        while p < stop:
+            ck = native_indexer.pack2_range(
+                data, p, stop, info, check_crc=check_crc,
+                max_frames=chunk_frames, force_fp=chunk_frames,
+                force_bp=Bp, force_w=force_w)
+            if ck is None:
+                return None
+            if ck.F == 0:
+                break
+            force_w = ck.W
+            out.append((p, ck))
+            if ck.landed <= p:
+                break
+            p = ck.landed
+        return out
+
+    auto = workers <= 0
+    if auto:
+        workers = min(os.cpu_count() or 1, 8)
+    span = len(data) - pos
+    # Parallelism pays only when several chunk scans fit the span;
+    # explicit workers (> 0) force the split path.
+    if workers < 2 or (auto and span < (1 << 20)):
+        return seq(pos, len(data))
+    bounds = [pos + span * k // workers for k in range(workers + 1)]
+    anchors = [native_indexer.find_anchor(data, bounds[k], bounds[k + 1],
+                                          info)
+               for k in range(1, workers)]
+    starts = sorted({pos} | {a for a in anchors if a >= 0})
+    ranges = [(s, starts[i + 1] if i + 1 < len(starts) else len(data))
+              for i, s in enumerate(starts)]
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        parts = list(ex.map(lambda r: seq(*r), ranges))
+    if any(p is None for p in parts):
+        return seq(pos, len(data))
+    out = []
+    expect = pos
+    for (a, _stop), part in zip(ranges, parts):
+        if a != expect:                 # chain break: serial truth
+            return seq(pos, len(data))
+        out.extend(part)
+        if part:
+            expect = part[-1][1].landed
+    return out
+
+
+def apply_stop_cut(block_sizes, total: int):
+    """Reference stop semantics at the STREAMINFO total
+    (zflac.zig:343-350, 394-402): decoding stops at the first frame
+    whose START reaches `total`, so whole trailing frames drop; a frame
+    that CROSSES the total invalidates it and everything is kept.
+
+    block_sizes: per-chunk frame block sizes. Returns None when nothing
+    drops, else (chunk index, frame index, samples kept) of the first
+    dropped frame."""
+    offset, valid = 0, True
+    for ci, bs_arr in enumerate(block_sizes):
+        for fi, b in enumerate(bs_arr):
+            if valid and offset >= total:
+                return ci, fi, offset
+            if valid and offset + int(b) > total:
+                valid = False
+            offset += int(b)
+    return None
+
+
+def decode_to_device(data: bytes, *, device, check_crc: bool = False,
+                     chunk_frames: int = 0, scan_workers: int = 0):
+    """Decode a stream to PCM on `device` ("cuda", "cuda:N" or "cpu").
+
+    Returns a DeviceDecoded, or None where the JAX package's
+    decode_to_device declines (exotic or mismatching streams, no
+    native scan library). Streams outside the ported slice raise
+    NotImplementedError. A CUDA device with no card raises; nothing
+    moves to the CPU by itself. The host scan runs in parallel
+    (scan_workers=0 picks the core count, up to 8); uploads and
+    kernels are queued on the current stream without waiting."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} requested but CUDA is "
+                               "not available")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+
+    if not native_indexer.native_available():
+        return None
+    br = BitReader(data)
+    info = parse_metadata(br)
+    if info.bits_per_sample > 32:
+        return None
+    pos = br.pos // 8
+    Bp = _bucket_block(max(info.max_block_size, 16))
+    t_scan = time.perf_counter()
+    if chunk_frames <= 0:
+        # Whole stream in one chunk up to ~64 MiB of padded rows;
+        # longer streams go in fixed-size chunks.
+        total_frames = estimate_total_frames(data, pos, info,
+                                             check_crc=check_crc)
+        if total_frames is None:
+            return None
+        chunk_frames = 1
+        while chunk_frames < total_frames and \
+                chunk_frames * info.channel_count * Bp < (1 << 24):
+            chunk_frames *= 2
+
+    chunks = scan_pack2_chunks(data, pos, info, chunk_frames, Bp,
+                               check_crc, workers=scan_workers)
+    if not chunks:
+        return None
+    cks = [ck for _, ck in chunks]
+    t_rescan = time.perf_counter()
+    # One geometry across all chunks: if any chunk's natural geometry
+    # diverges, re-scan each chunk's byte range with the forced union
+    # geometry. A re-scan must land where the natural scan did.
+    spec0 = cks[0].spec_key()
+    if any(ck.spec_key() != spec0 for ck in cks[1:]):
+        cnp, pnp, wide_u = class_caps(cks)
+        force_w = max(ck.W for ck in cks)
+        cks = [native_indexer.pack2_range(
+                   data, a, ck.landed, info, check_crc=check_crc,
+                   max_frames=chunk_frames, force_fp=chunk_frames,
+                   force_bp=Bp, force_w=force_w, force_class_np=cnp,
+                   force_patch_np=pnp, force_wide=wide_u)
+               for a, ck in chunks]
+        if any(ck is None or ck.landed != nat.landed
+               for ck, (_, nat) in zip(cks, chunks)):
+            return None
+
+    t_enqueue = time.perf_counter()
+    dd = None
+    for ck in cks:
+        if dd is None:
+            dd = DeviceDecoded(
+                channels=ck.C, sample_rate=ck.sample_rate,
+                bits_per_sample=ck.bits_per_sample, total_samples=0,
+                device=device, md5=info.md5,
+                stats={"engine": "pack2", "frames": 0})
+        elif ck.sample_rate != dd.sample_rate or ck.C != dd.channels:
+            raise InconsistentParameters(
+                "stream parameters changed mid-stream")
+        buf, geom = chunk_to_torch(ck, device)
+        pcm = reconstruct_pack2(
+            buf, geom, container_bits=fmt.container_bits(ck.bits_per_sample))
+        dd.chunks.append(pcm)
+        dd.num_frames.append(ck.F)
+        dd.block_sizes.append(ck.f_block_size)
+        dd.total_samples += int(ck.f_block_size.sum())
+        dd.stats["frames"] += ck.F
+    # Host-clock phase times: the scan (with the frame estimate), the
+    # union re-scan, and queueing the uploads and kernels (the device
+    # work itself is not waited for).
+    t_end = time.perf_counter()
+    dd.stats.update(chunks=len(dd.chunks),
+                    scan_ms=(t_rescan - t_scan) * 1e3,
+                    rescan_ms=(t_enqueue - t_rescan) * 1e3,
+                    enqueue_ms=(t_end - t_enqueue) * 1e3)
+    if info.total_samples and dd.total_samples > info.total_samples:
+        cut = apply_stop_cut(dd.block_sizes, info.total_samples)
+        if cut is not None:
+            ci, fi, kept = cut
+            bs = dd.block_sizes[ci].copy()
+            bs[fi:] = 0
+            dd.block_sizes[ci] = bs
+            dd.num_frames[ci] = fi
+            del dd.chunks[ci + 1:]
+            del dd.num_frames[ci + 1:]
+            del dd.block_sizes[ci + 1:]
+            dd.stats["frames"] = sum(dd.num_frames)
+            dd.stats["chunks"] = len(dd.chunks)
+            dd.total_samples = kept
+    return dd
