@@ -9,22 +9,27 @@ library from the checkout's sources, then:
 
   1. prints the card (nvidia-smi name and power limit), torch and CUDA;
   2. builds the kernels and the scan library, and times the build;
-  3. makes the streams: the bench stream (bench.py's: 2**22 correlated
-     stereo samples per channel, 16-bit, block 4096; cached in
-     .bench_cache/) and every stereo corpus stream of <= 16 bits;
-  4. holds each kernel (rice16, lpc2, packtail) bit for bit against its
-     plain PyTorch version on the card, on every stream's real chunk
-     sections and on seeded synthetic inputs, and times both at the
-     bench chunk's shapes (CUDA events, median of 25 batches of
-     back-to-back calls after warm-up);
-  5. resets the launch counters, drives zflac_tpu_torch.decode_to_device
-     over the bench stream, reads the counters (each kernel must have
-     launched), and checks the PCM against the encoder's input and the
-     native C++ decoder, with the stream MD5 verified; then the same
-     for every corpus stream, the bench stream in 256-frame chunks,
-     and a corrupted stream that must raise InvalidChecksum;
-  6. times the device reconstruction of the bench chunk and the whole
-     decode_to_device call.
+  3. makes the streams: three full-width bench streams of correlated
+     stereo, block 4096, 44.1 kHz, encoded in parallel processes and
+     cached in .bench_cache/ (bench16: bench.py's 2**22 samples per
+     channel at 16 bits; bench24: the JAX package's stream24 row,
+     2**21 samples at 24 bits; bench32ms: 2**20 samples at 32 bits,
+     mid-side, whose 33-bit side channels make wide chunks), and every
+     corpus stream;
+  4. holds each kernel (rice16, lpc2, packtail, lpc2w, lpc2w33) bit for
+     bit against its plain PyTorch version on the card, on every
+     stream's real chunk sections and on seeded synthetic inputs, and
+     times both at the bench chunks' shapes (CUDA events, median of 25
+     batches of back-to-back calls after warm-up);
+  5. for each bench stream, resets the launch counters, drives
+     zflac_tpu_torch.decode_to_device over it, reads the counters (each
+     kernel of that stream's path must have launched), and checks the
+     PCM against the encoder's input and the native C++ decoder, with
+     the stream MD5 verified; then the same for every corpus stream,
+     bench16 in 256-frame chunks, and a corrupted stream that must
+     raise InvalidChecksum;
+  6. times the device reconstruction of each bench chunk and the whole
+     decode_to_device call on bench16 and bench24.
 
 Any failure raises, and the exit code is then not 0. With no CUDA
 device it exits 1 before doing anything. The last lines are one JSON
@@ -35,11 +40,13 @@ object with a record per kernel, the nvidia-smi line, and
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -55,15 +62,23 @@ from zflac_tpu.oracle import parse_metadata
 from zflac_tpu.result import container_dtype
 from zflac_tpu.testing import correlated_stereo, make_corpus
 from zflac_tpu_torch import _kernels
-from zflac_tpu_torch.ops.lpc2 import lpc2_reconstruct, lpc2_reconstruct_ref
+from zflac_tpu_torch.ops.lpc2 import lpc2_reconstruct_ref
+from zflac_tpu_torch.ops.lpc2w import (lpc2w33_reconstruct_ref,
+                                       lpc2w_reconstruct_ref)
 from zflac_tpu_torch.ops.packtail import packtail, packtail_ref
 from zflac_tpu_torch.ops.rice16 import (K2_ESCAPE, K2_INVALID,
                                         rice16_unpack_rows,
                                         rice16_unpack_rows_ref)
 from zflac_tpu_torch.runtime import device as rt
 
-BENCH_SAMPLES = 1 << 22
 BENCH_BLOCK = 4096
+# name -> (samples per channel, bits per sample, stereo mode, the
+# kernels its decode_to_device path must launch).
+BENCH = {
+    "bench16": (1 << 22, 16, None, ("rice16", "lpc2", "packtail")),
+    "bench24": (1 << 21, 24, None, ("rice16", "lpc2w")),
+    "bench32ms": (1 << 20, 32, "mid_side", ("rice16", "lpc2w33")),
+}
 CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                      ".bench_cache")
 REPS = 25
@@ -75,7 +90,12 @@ KERNELS = {
     "lpc2": ("zflac_tpu_torch/csrc/lpc2.cu", "zflac_tpu/ops/lpc2.py:88"),
     "packtail": ("zflac_tpu_torch/csrc/packtail.cu",
                  "zflac_tpu/ops/packtail.py:54"),
+    "lpc2w": ("zflac_tpu_torch/csrc/lpc2w.cu", "zflac_tpu/ops/lpc2w.py:134"),
+    "lpc2w33": ("zflac_tpu_torch/csrc/lpc2w.cu",
+                "zflac_tpu/ops/lpc2w.py:297"),
 }
+LPC_PLAIN = {"lpc2": lpc2_reconstruct_ref, "lpc2w": lpc2w_reconstruct_ref,
+             "lpc2w33": lpc2w33_reconstruct_ref}
 
 
 def say(phase: str, msg: str) -> None:
@@ -90,18 +110,29 @@ def gpu_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def bench_stream() -> bytes:
-    """bench.py's stream, from its cache file when present."""
-    path = os.path.join(CACHE, f"bench_{BENCH_SAMPLES}_{BENCH_BLOCK}.flac")
+def bench_pcm(name: str) -> np.ndarray:
+    n, bps, _, _ = BENCH[name]
+    return correlated_stereo(n, bps, seed=7)
+
+
+def bench_stream(name: str) -> bytes:
+    """Bench stream `name`, from its cache file when present, else
+    encoded and cached."""
+    n, bps, mode, _ = BENCH[name]
+    path = os.path.join(
+        CACHE, f"bench_{n}_{bps}bit_{BENCH_BLOCK}"
+        f"{'_' + mode if mode else ''}.flac")
     if os.path.exists(path):
         with open(path, "rb") as f:
             return f.read()
-    pcm = correlated_stereo(BENCH_SAMPLES, 16, seed=7)
-    data = encode(pcm, 44100, 16, EncoderConfig(block_size=BENCH_BLOCK))
+    cfg = EncoderConfig(block_size=BENCH_BLOCK,
+                        **({"stereo_mode": mode} if mode else {}))
+    data = encode(bench_pcm(name), 44100, bps, cfg)
     os.makedirs(CACHE, exist_ok=True)
-    with open(path + ".tmp", "wb") as f:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
         f.write(data)
-    os.replace(path + ".tmp", path)
+    os.replace(tmp, path)
     return data
 
 
@@ -170,26 +201,58 @@ class Diff:
 
 def kernel_checks(dev, diff: Diff, what: str, ck) -> dict:
     """Each kernel of the chunk's path against its plain version, on
-    the chunk's real sections. Returns the kernel inputs."""
+    the chunk's real sections: rice16, the chunk's LPC kernel on each
+    LPC class, and packtail where the chunk takes it (stereo in an
+    8/16-bit container). Returns the kernel inputs."""
     buf, geom = rt.chunk_to_torch(ck, dev)
     win = geom.sect(buf, "win", geom.W * geom.NGp).view(geom.W, geom.NGp)
     meta = geom.sect(buf, "meta", geom.NGp)
     diff.check("rice16", what,
                rice16_unpack_rows(win, meta, Ssort=geom.Ssort),
                rice16_unpack_rows_ref(win, meta, Ssort=geom.Ssort))
+    cb = fmt.container_bits(ck.bits_per_sample)
     rows_t = rt.residual_rows(buf, geom)
+    lpc_name = rt.lpc_kernel(geom, cb)
     lpc = rt.lpc_class_inputs(rows_t, buf, geom)
     for cname, args in lpc.items():
-        diff.check("lpc2", f"{what} {cname}",
-                   lpc2_reconstruct(*args), lpc2_reconstruct_ref(*args))
-    stack = rt.sorted_stack(rows_t, buf, geom)
+        diff.check(lpc_name, f"{what} {cname}",
+                   rt.LPC_KERNELS[lpc_name](*args),
+                   LPC_PLAIN[lpc_name](*args))
+    stack = rt.sorted_stack(rows_t, buf, geom, container_bits=cb)
     tail = rt.tail_inputs(buf, geom)
-    cb = fmt.container_bits(ck.bits_per_sample)
-    diff.check("packtail", what,
-               packtail(stack, *tail, Fp=geom.Fp, container_bits=cb),
-               packtail_ref(stack, *tail, Fp=geom.Fp, container_bits=cb))
+    if geom.C == 2 and cb in (8, 16):
+        diff.check("packtail", what,
+                   packtail(stack, *tail, Fp=geom.Fp, container_bits=cb),
+                   packtail_ref(stack, *tail, Fp=geom.Fp,
+                                container_bits=cb))
     return dict(buf=buf, geom=geom, win=win, meta=meta, lpc=lpc,
-                stack=stack, tail=tail, cb=cb)
+                lpc_name=lpc_name, stack=stack, tail=tail, cb=cb)
+
+
+# Shift amounts for the wide recurrences: every value the buffer's
+# 5-bit field carries, and out-of-range ones only a corrupt buffer
+# holds (the JAX step math defines them too).
+SHIFTS = np.array([*range(32), 32, 33, 40, 63, 64, 100, -1, -32,
+                   2**31 - 1, -2**31], np.int32)
+
+
+def hires_inputs(rng, n: int, B: int, hist: int, warm_bits: int):
+    """Seeded high-res recurrences: orders 1..hist, coefficients of up
+    to 15 bits with sum|c| <= 2^shift so the samples stay bounded,
+    warm-ups of `warm_bits` bits and small residuals, so the 64-bit
+    sums pass 2^32 by far; shifts from SHIFTS (10..15 on most lanes)."""
+    order = rng.integers(1, hist + 1, n).astype(np.int32)
+    shift = rng.integers(10, 16, n).astype(np.int32)
+    shift[:len(SHIFTS)] = SHIFTS
+    cf = np.zeros((hist, n), np.int32)
+    rows = rng.integers(-1024, 1025, (B, n)).astype(np.int64)
+    lim = 1 << (warm_bits - 1)
+    for i in range(n):
+        o = order[i]
+        cap = max(1, (1 << int(min(max(shift[i], 0), 15))) // int(o))
+        cf[:o, i] = rng.integers(-cap, cap + 1, o)
+        rows[:o, i] = rng.integers(-lim, lim, o)
+    return rows, cf, shift, order
 
 
 def synthetic_checks(dev, diff: Diff) -> None:
@@ -223,7 +286,17 @@ def synthetic_checks(dev, diff: Diff) -> None:
         args = (t(rng.integers(-(1 << 15), 1 << 15, (B, n)).astype(np.int32)),
                 t(cf), t(rng.integers(0, 16, n).astype(np.int32)), t(order))
         diff.check("lpc2", f"synthetic hist={hist} B={B}",
-                   lpc2_reconstruct(*args), lpc2_reconstruct_ref(*args))
+                   rt.LPC_KERNELS["lpc2"](*args), lpc2_reconstruct_ref(*args))
+    for name, warm_bits, dtype in (("lpc2w", 30, np.int32),
+                                   ("lpc2w33", 33, np.int64)):
+        for hist in (8, 16, 32):
+            for B in (640, 1152):
+                rows, cf, shift, order = hires_inputs(rng, 256, B, hist,
+                                                      warm_bits)
+                args = (t(rows.astype(dtype)), t(cf), t(shift), t(order))
+                diff.check(name, f"synthetic hist={hist} B={B}",
+                           rt.LPC_KERNELS[name](*args),
+                           LPC_PLAIN[name](*args))
     Fp, Bp, rows = 64, 384, 129
     for cb in (16, 8):
         args = (t(rng.integers(-(1 << 15), 1 << 15, (rows, Bp))
@@ -256,6 +329,32 @@ def decode_check(what: str, data: bytes, want: np.ndarray,
     return dd
 
 
+def e2e_times(data: bytes, n_samples: int, line: str, what: str) -> None:
+    """decode_to_device end to end on `data`, synchronized, median of
+    5 on the host clock, with its phase medians."""
+    walls, phases = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        dd = zflac_tpu_torch.decode_to_device(data, device="cuda")
+        b = time.perf_counter()
+        dd.synchronize()
+        c = time.perf_counter()
+        walls.append((c - a) * 1e3)
+        phases.append(dict(dd.stats, wait_ms=(c - b) * 1e3))
+    med = {k: statistics.median(p[k] for p in phases)
+           for k in ("scan_ms", "rescan_ms", "enqueue_ms", "wait_ms")}
+    e2e = statistics.median(walls)
+    say("times", f"{what}: decode_to_device end to end (scan + H2D + "
+        f"device, synchronized): {e2e:.3f} ms = "
+        f"{n_samples / e2e / 1e3:.1f} Msamples/s, median of 5, host "
+        f"clock, {phases[0]['chunks']} chunks, {os.cpu_count()} host "
+        f"cores; phase medians (host clock) scan {med['scan_ms']:.3f} ms, "
+        f"union re-scan {med['rescan_ms']:.3f} ms, upload + kernel "
+        f"queueing {med['enqueue_ms']:.3f} ms, then waiting for the "
+        f"device {med['wait_ms']:.3f} ms; on {line}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -266,95 +365,125 @@ def main() -> None:
     say("device", f"{line} | torch {torch.__version__} | CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
-    _kernels.build(force=True)
-    _kernels.library()
-    t1 = time.perf_counter()
-    if not native_available():
-        raise RuntimeError("the native scan library did not build")
-    t2 = time.perf_counter()
-    say("build", f"CUDA kernels {t1 - t0:.1f} s (nvcc "
-        f"{_kernels.find_nvcc()}, {' '.join(_kernels.NVCC_FLAGS)}); "
-        f"host scan library {t2 - t1:.1f} s")
-
-    t0 = time.perf_counter()
-    bench = bench_stream()
-    bench_want = expected_pcm(correlated_stereo(BENCH_SAMPLES, 16, seed=7),
-                              16)
-    corpus = {name: (data, expected_pcm(pcm, bps))
-              for name, (data, pcm, _sr, bps) in make_corpus().items()
-              if pcm.shape[1] == 2 and bps <= 16}
-    say("streams", f"bench {len(bench)} B ({BENCH_SAMPLES} x 2 samples) "
-        f"and {len(corpus)} stereo corpus streams of <= 16 bits, "
-        f"{time.perf_counter() - t0:.1f} s")
+    # The bench streams encode in worker processes (minutes of host
+    # work, cached afterwards) while the kernels build.
+    t_streams = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=len(BENCH),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        pending = {name: pool.submit(bench_stream, name) for name in BENCH}
+        t0 = time.perf_counter()
+        _kernels.build(force=True)
+        _kernels.library()
+        t1 = time.perf_counter()
+        if not native_available():
+            raise RuntimeError("the native scan library did not build")
+        t2 = time.perf_counter()
+        say("build", f"CUDA kernels {t1 - t0:.1f} s (nvcc "
+            f"{_kernels.find_nvcc()}, {' '.join(_kernels.NVCC_FLAGS)}); "
+            f"host scan library {t2 - t1:.1f} s")
+        corpus = {name: (data, expected_pcm(pcm, bps))
+                  for name, (data, pcm, _sr, bps) in make_corpus().items()}
+        benches = {name: (fut.result(),
+                          expected_pcm(bench_pcm(name), BENCH[name][1]))
+                   for name, fut in pending.items()}
+    say("streams", ", ".join(
+        f"{name} {len(data)} B ({BENCH[name][0]} x 2 samples, "
+        f"{BENCH[name][1]}-bit)" for name, (data, _) in benches.items())
+        + f" and {len(corpus)} corpus streams, "
+        f"{time.perf_counter() - t_streams:.1f} s")
 
     # ---- kernels against their plain versions, on the card ----
     diff = Diff()
-    ins = kernel_checks(dev, diff, "bench chunk", first_chunk(bench))
-    # The chunks decode_to_device itself scans for the bench stream: one
-    # per anchor-split range of the parallel scan, each of the
-    # stream's 1024 frames at most.
-    br = BitReader(bench)
-    info = parse_metadata(br)
-    main_chunks = rt.scan_pack2_chunks(
-        bench, br.pos // 8, info, 1024, ins["geom"].Bp, False)
-    for i, (_, ck) in enumerate(main_chunks):
-        kernel_checks(dev, diff, f"bench range chunk {i}", ck)
+    ins, n_chunks = {}, {}
+    for name, (data, _) in benches.items():
+        ins[name] = kernel_checks(dev, diff, f"{name} chunk",
+                                  first_chunk(data))
+        # The chunks decode_to_device itself scans for the stream: one
+        # per anchor-split range of the parallel scan, each of the
+        # stream's frames at most.
+        br = BitReader(data)
+        info = parse_metadata(br)
+        main_chunks = rt.scan_pack2_chunks(
+            data, br.pos // 8, info, 1024, ins[name]["geom"].Bp, False)
+        for i, (_, ck) in enumerate(main_chunks):
+            kernel_checks(dev, diff, f"{name} range chunk {i}", ck)
+        n_chunks[name] = len(main_chunks)
     for name, (data, _) in corpus.items():
         kernel_checks(dev, diff, name, first_chunk(data))
     synthetic_checks(dev, diff)
     torch.cuda.synchronize()
-    g = ins["geom"]
-    say("kernels", f"bit-exact on the whole-stream bench chunk (Fp "
-        f"{g.Fp}, Bp {g.Bp}, Ssort {g.Ssort}, W {g.W}, NGp {g.NGp}, "
-        f"classes {g.classes}), the {len(main_chunks)} chunks of the "
-        f"parallel scan (Ssort {[ck.Ssort for _, ck in main_chunks]}), "
-        f"{len(corpus)} corpus chunks and synthetic inputs; max |err| "
-        f"{diff.err}")
+    for name, d in ins.items():
+        g = d["geom"]
+        say("kernels", f"{name} whole-stream chunk: Fp {g.Fp}, Bp {g.Bp}, "
+            f"Ssort {g.Ssort}, W {g.W}, NGp {g.NGp}, wide {g.wide}, "
+            f"classes {g.classes}, LPC kernel {d['lpc_name']}; "
+            f"{n_chunks[name]} parallel-scan chunks")
+    say("kernels", f"bit-exact on the bench chunks, their parallel-scan "
+        f"chunks, {len(corpus)} corpus chunks and synthetic inputs; max "
+        f"|err| {diff.err}")
 
-    win, meta, Ss = ins["win"], ins["meta"], g.Ssort
-    lpc_args = next(iter(ins["lpc"].values()))
-    tail = (ins["stack"], *ins["tail"])
-    tkw = dict(Fp=g.Fp, container_bits=ins["cb"])
+    # Each kernel is timed on the first LPC class (lpc8 in all three) of
+    # the bench chunk whose path runs it.
+    timed_on = {"lpc2w": "bench24", "lpc2w33": "bench32ms"}
+    b16 = ins["bench16"]
+    win, meta, Ss = b16["win"], b16["meta"], b16["geom"].Ssort
+    tail = (b16["stack"], *b16["tail"])
+    tkw = dict(Fp=b16["geom"].Fp, container_bits=b16["cb"])
+    lpc_args = {k: next(iter(ins[timed_on.get(k, "bench16")]["lpc"].values()))
+                for k in LPC_PLAIN}
     timed = {
         "rice16": (lambda: rice16_unpack_rows(win, meta, Ssort=Ss),
                    lambda: rice16_unpack_rows_ref(win, meta, Ssort=Ss)),
-        "lpc2": (lambda: lpc2_reconstruct(*lpc_args),
-                 lambda: lpc2_reconstruct_ref(*lpc_args)),
         "packtail": (lambda: packtail(*tail, **tkw),
                      lambda: packtail_ref(*tail, **tkw)),
     }
+    for k, a in lpc_args.items():
+        timed[k] = (lambda k=k, a=a: rt.LPC_KERNELS[k](*a),
+                    lambda k=k, a=a: LPC_PLAIN[k](*a))
     times = {}
-    for name, (kern, plain) in timed.items():
+    for name in KERNELS:
+        kern, plain = timed[name]
         times[name] = (cuda_ms(kern), cuda_ms(plain))
-        say("kernels", f"{name} at bench shapes: kernel "
+        where = timed_on.get(name, "bench16")
+        shape = ""
+        if name in lpc_args:
+            B, n = lpc_args[name][0].shape
+            shape = (f" (rows [{B}, {n}], hist "
+                     f"{lpc_args[name][1].shape[0]}: "
+                     f"{times[name][0] / B * 1e6:.1f} ns per step)")
+        say("kernels", f"{name} at {where} shapes{shape}: kernel "
             f"{times[name][0]:.4f} ms, plain PyTorch {times[name][1]:.4f} "
             f"ms (per call, median of {REPS} batches, CUDA events) on "
             f"{line}")
 
-    # ---- the main path, counted ----
-    _kernels.launches.clear()
-    dd = decode_check("bench stream", bench, bench_want)
-    torch.cuda.synchronize()
-    launches = dict(_kernels.launches)
-    say("slice", f"bench stream: decode_to_device -> to_host (MD5 "
-        f"verified) == encoder input == native decoder; chunks "
-        f"{len(dd.chunks)}, frames {dd.stats['frames']}; kernel launches "
-        f"{launches}")
-    missing = [k for k in KERNELS if not launches.get(k)]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
+    # ---- the main path, counted: each bench stream's own run ----
+    launches = {}
+    for name, (data, want) in benches.items():
+        _kernels.launches.clear()
+        dd = decode_check(name, data, want)
+        torch.cuda.synchronize()
+        got = dict(_kernels.launches)
+        say("slice", f"{name}: decode_to_device -> to_host (MD5 verified) "
+            f"== encoder input == native decoder; chunks "
+            f"{len(dd.chunks)}, frames {dd.stats['frames']}; kernel "
+            f"launches {got}")
+        missing = [k for k in BENCH[name][3] if not got.get(k)]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {name} "
+                                 f"path: {missing}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
 
     for name, (data, want) in corpus.items():
         decode_check(name, data, want)
     say("slice", f"{len(corpus)} corpus streams bit-exact (to_host with "
         "MD5, interleaved_device, native decoder)")
-    dd4 = decode_check("bench stream, chunk_frames=256", bench,
-                       bench_want, chunk_frames=256)
+    dd4 = decode_check("bench16, chunk_frames=256", *benches["bench16"],
+                       chunk_frames=256)
     if len(dd4.chunks) < 2:
         raise AssertionError("chunk_frames=256 gave one chunk")
-    say("slice", f"bench stream in {len(dd4.chunks)} chunks bit-exact")
+    say("slice", f"bench16 in {len(dd4.chunks)} chunks bit-exact")
     bad = bytearray(corpus["lpc order 8"][0])
     bad[-200] ^= 0x10
     dd_bad = zflac_tpu_torch.decode_to_device(bytes(bad), device="cuda")
@@ -369,35 +498,16 @@ def main() -> None:
         raise AssertionError("corrupted stream decoded without an MD5 error")
 
     # ---- times ----
-    n_samples = BENCH_SAMPLES * 2
-    buf, geom = ins["buf"], ins["geom"]
-    rec_ms = cuda_ms(lambda: rt.reconstruct_pack2(
-        buf, geom, container_bits=ins["cb"]))
-    say("times", f"reconstruct_pack2, bench chunk from a device buffer: "
-        f"{rec_ms:.4f} ms = {n_samples / rec_ms / 1e3:.1f} Msamples/s "
-        f"(both channels; per call, median of {REPS} batches, CUDA "
-        f"events) on {line}")
-    walls, phases = [], []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        a = time.perf_counter()
-        dd = zflac_tpu_torch.decode_to_device(bench, device="cuda")
-        b = time.perf_counter()
-        dd.synchronize()
-        c = time.perf_counter()
-        walls.append((c - a) * 1e3)
-        phases.append(dict(dd.stats, wait_ms=(c - b) * 1e3))
-    med = {k: statistics.median(p[k] for p in phases)
-           for k in ("scan_ms", "rescan_ms", "enqueue_ms", "wait_ms")}
-    e2e = statistics.median(walls)
-    say("times", f"decode_to_device end to end (scan + H2D + device, "
-        f"synchronized): {e2e:.3f} ms = {n_samples / e2e / 1e3:.1f} "
-        f"Msamples/s, median of 5, host clock, {phases[0]['chunks']} "
-        f"chunks, {os.cpu_count()} host cores; phase medians (host "
-        f"clock) scan {med['scan_ms']:.3f} ms, union re-scan "
-        f"{med['rescan_ms']:.3f} ms, upload + kernel queueing "
-        f"{med['enqueue_ms']:.3f} ms, then waiting for the device "
-        f"{med['wait_ms']:.3f} ms; on {line}")
+    for name, d in ins.items():
+        n_samples = BENCH[name][0] * 2
+        rec_ms = cuda_ms(lambda d=d: rt.reconstruct_pack2(
+            d["buf"], d["geom"], container_bits=d["cb"]))
+        say("times", f"reconstruct_pack2, {name} whole-stream chunk from a "
+            f"device buffer: {rec_ms:.4f} ms = "
+            f"{n_samples / rec_ms / 1e3:.1f} Msamples/s (both channels; "
+            f"per call, median of {REPS} batches, CUDA events) on {line}")
+    for name in ("bench16", "bench24"):
+        e2e_times(benches[name][0], BENCH[name][0] * 2, line, name)
 
     records = [{"name": k, "route": "cuda", "source": src,
                 "replaces": rep, "launches": int(launches.get(k, 0)),

@@ -1,9 +1,10 @@
 """The PyTorch port's pack2 device decode (zflac_tpu_torch) against the
-JAX package's, end to end on the CPU: each stereo corpus stream of
-<= 16 bits decodes to the same PCM (tolerance zero). This file takes
-the streams that exercise subframe types and their parameters;
-test_torch_stream_format.py and test_torch_blocking.py take the rest
-of the slice (tests/torch_slice.py). On the CPU every kernel wrapper
+JAX package's, end to end on the CPU: each corpus stream decodes to
+the same PCM (tolerance zero). This file takes the streams that
+exercise subframe types and their parameters;
+test_torch_stream_format.py, test_torch_blocking.py,
+test_torch_hires.py and test_torch_channels.py take the rest of the
+corpus (tests/torch_slice.py). On the CPU every kernel wrapper
 runs its plain PyTorch version; the CUDA kernels are held to those on
 the card by chip_smoke.py."""
 
@@ -19,7 +20,9 @@ from zflac_tpu.testing import make_corpus  # noqa: E402
 
 from torch_slice import (  # noqa: E402
     BLOCKING_STREAMS,
+    CHANNEL_STREAMS,
     FORMAT_STREAMS,
+    HIRES_STREAMS,
     SUBFRAME_STREAMS,
     check_stream,
 )
@@ -29,13 +32,12 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_stream_groups_cover_the_slice():
-    """The three stream groups are the slice's streams, each once: every
-    corpus stream with two channels and at most 16 bits."""
-    groups = SUBFRAME_STREAMS + FORMAT_STREAMS + BLOCKING_STREAMS
-    assert len(set(groups)) == len(groups)
-    assert set(groups) == {
-        name for name, (_d, pcm, _sr, bps) in make_corpus().items()
-        if pcm.shape[1] == 2 and bps <= 16}
+    """The five stream groups are the corpus, each stream once: the port
+    takes every stream the JAX package's decode_to_device takes."""
+    groups = (SUBFRAME_STREAMS + FORMAT_STREAMS + BLOCKING_STREAMS +
+              HIRES_STREAMS + CHANNEL_STREAMS)
+    assert len(set(groups)) == len(groups) == 61
+    assert set(groups) == set(make_corpus())
 
 
 @pytest.mark.parametrize("name", SUBFRAME_STREAMS)

@@ -1,9 +1,10 @@
 """The PyTorch port's pack2 runtime (zflac_tpu_torch.runtime.device)
 piece by piece, on the CPU: the stages between the kernels equal the
-JAX core truncated at the same point, the buffer upload round-trips,
-the stop cut, corruption and out-of-slice streams behave as in the JAX
-package, the kernel wrappers never fall back from a CUDA request to the
-CPU, and the port never imports JAX."""
+JAX core truncated at the same point, wide chunks equal the JAX wide
+path, the buffer upload round-trips, the stop cut and corruption behave
+as in the JAX package, the stream MD5 check equals the JAX one, the
+kernel wrappers never fall back from a CUDA request to the CPU, and the
+port never imports JAX."""
 
 import os
 import subprocess
@@ -65,20 +66,17 @@ def test_corruption_raises(corpus):
         dd.to_host()
 
 
-@pytest.mark.parametrize("name", ["bps 24", "channels 1",
-                                  "hi-res 32bit mid_side"])
-def test_outside_slice_raises(name, corpus):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zflac_tpu_torch.decode_to_device(corpus[name][0], device="cpu")
-
-
 @pytest.mark.parametrize("name", ["constant heavy", "verbatim noise",
                                   "fixed order 3", "lpc order 32",
-                                  "escaped partitions", "bps 8"])
+                                  "escaped partitions", "bps 8", "bps 24",
+                                  "channels 1", "channels 5",
+                                  "surround 8ch 24bit"])
 def test_stages_match_jax(name, corpus):
     """The port's stages equal the JAX core truncated at the same
     point: residual_rows == stage "rows", sorted_stack == stage
-    "transpose", reconstruct_pack2 == the chunk PCM."""
+    "transpose", reconstruct_pack2 == the chunk PCM (the packtail
+    kernel's path, the 32-bit container's lpc2w and the general tail
+    for 1, 5 and 8 channels)."""
     from zflac_tpu import format as fmt
     from zflac_tpu.runtime.device import _reconstruct_pack2_core
 
@@ -87,18 +85,64 @@ def test_stages_match_jax(name, corpus):
     stages = ("rows", "transpose", "full")
     # One compile for the three truncations (XLA shares their prefix).
     want = jax.jit(lambda b: tuple(_reconstruct_pack2_core(
-        b, spec=ck.spec_key(), num_channels=2, container_bits=cb,
+        b, spec=ck.spec_key(), num_channels=ck.C, container_bits=cb,
         do_decorrelate=ck.do_decorrelate, use_pallas=False, stage=stage)
         for stage in stages))(jnp.asarray(ck.device_buf))
     want = dict(zip(stages, map(np.asarray, want)))
 
     buf, geom = rt.chunk_to_torch(ck, "cpu")
+    assert rt.lpc_kernel(geom, cb) == ("lpc2w" if cb == 32 else "lpc2")
     rows_t = rt.residual_rows(buf, geom)
     np.testing.assert_array_equal(rows_t.numpy(), want["rows"])
-    stack = rt.sorted_stack(rows_t, buf, geom)
+    stack = rt.sorted_stack(rows_t, buf, geom, container_bits=cb)
     np.testing.assert_array_equal(stack.numpy(), want["transpose"])
     pcm = rt.reconstruct_pack2(buf, geom, container_bits=cb)
+    assert pcm.dtype == getattr(torch, want["full"].dtype.name)
     np.testing.assert_array_equal(pcm.numpy(), want["full"])
+
+
+@pytest.mark.parametrize("name", ["bps 32", "hi-res 32bit",
+                                  "hi-res 32bit mid_side",
+                                  "hi-res 32bit left_side"])
+def test_wide_chunk_matches_jax(name, corpus):
+    """A wide chunk (33-bit side channels) reconstructs in int64 through
+    lpc2w33 to the JAX wide path's [Fp, Bp, 2] int32 PCM."""
+    from zflac_tpu.runtime.device import _reconstruct_pack2_core
+
+    ck = _first_chunk(corpus[name][0], max_frames=64, force_fp=64)
+    assert "warm_hi" in ck.off and ck.C == 2
+    want = np.asarray(jax.jit(lambda b: _reconstruct_pack2_core(
+        b, spec=ck.spec_key(), num_channels=2, container_bits=32,
+        do_decorrelate=ck.do_decorrelate, use_pallas=False))(
+        jnp.asarray(ck.device_buf)))
+
+    buf, geom = rt.chunk_to_torch(ck, "cpu")
+    assert geom.wide and rt.lpc_kernel(geom, 32) == "lpc2w33"
+    rows_t = rt.residual_rows(buf, geom)
+    stack = rt.sorted_stack(rows_t, buf, geom, container_bits=32)
+    assert rows_t.dtype == stack.dtype == torch.int64
+    pcm = rt.reconstruct_pack2(buf, geom, container_bits=32)
+    assert pcm.dtype == torch.int32 and want.dtype == np.int32
+    np.testing.assert_array_equal(pcm.numpy(), want)
+
+
+@pytest.mark.parametrize("name", ["bps 24", "bps 20"])
+def test_md5_3byte_domain_matches_jax(name, corpus):
+    """The port's verify_stream_md5 agrees with the JAX package's on
+    the 3-byte sample domain: both accept the stream's PCM and both
+    reject it with one sample changed."""
+    from zflac_tpu import format as fmt
+    from zflac_tpu.runtime.decode import verify_stream_md5
+
+    data, pcm, _sr, bps = corpus[name]
+    assert fmt.md5_bytes_per_sample(bps) == 3
+    dd = zflac_tpu_torch.decode_to_device(data, device="cpu")
+    pcm_md5 = pcm.astype(np.int32).reshape(-1)
+    bad = pcm_md5.copy()
+    bad[len(bad) // 2] ^= 1 << 16
+    for arr, ok in ((pcm_md5, True), (bad, False)):
+        assert rt.verify_stream_md5(arr, bps, dd.md5) is ok
+        assert verify_stream_md5(arr, bps, dd.md5) is ok
 
 
 def test_chunk_to_torch_round_trip(corpus):
@@ -122,8 +166,9 @@ def test_port_imports_no_jax():
     JAX (the card's machine has none)."""
     code = ("import sys\n"
             "import zflac_tpu_torch\n"
-            "from zflac_tpu_torch.runtime import device, reconstruct\n"
-            "from zflac_tpu_torch.ops import rice16, lpc2, packtail\n"
+            "from zflac_tpu_torch.runtime import device, reconstruct, "
+            "wide\n"
+            "from zflac_tpu_torch.ops import rice16, lpc2, lpc2w, packtail\n"
             "from zflac_tpu_torch import _kernels\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] == 'jax']\n"
@@ -145,6 +190,8 @@ def test_kernel_wrappers_refuse_other_devices():
     """The wrappers run the plain version only for CPU tensors: tensors
     elsewhere, or on several devices, raise instead of falling back."""
     from zflac_tpu_torch.ops.lpc2 import lpc2_reconstruct
+    from zflac_tpu_torch.ops.lpc2w import (lpc2w33_reconstruct,
+                                           lpc2w_reconstruct)
     from zflac_tpu_torch.ops.packtail import packtail
     from zflac_tpu_torch.ops.rice16 import rice16_unpack_rows
 
@@ -156,9 +203,12 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="several devices"):
         rice16_unpack_rows(torch.zeros((8, 1024), dtype=torch.int32),
                            meta(1024), Ssort=1024)
-    with pytest.raises(ValueError, match="device"):
-        lpc2_reconstruct(meta(128, 128), meta(8, 128), meta(128),
-                         meta(128))
+    for lpc in (lpc2_reconstruct, lpc2w_reconstruct, lpc2w33_reconstruct):
+        with pytest.raises(ValueError, match="device"):
+            lpc(meta(128, 128), meta(8, 128), meta(128), meta(128))
+    with pytest.raises(ValueError, match="several devices"):
+        lpc2w33_reconstruct(torch.zeros((128, 128), dtype=torch.int64),
+                            meta(8, 128), meta(128), meta(128))
     with pytest.raises(ValueError, match="device"):
         packtail(meta(129, 128), meta(8), meta(8), meta(4), Fp=4,
                  container_bits=16)

@@ -1,11 +1,11 @@
 """Shared by the tests that hold the PyTorch port's decode_to_device
 (zflac_tpu_torch) to the JAX package's, stream by stream, on the CPU.
 
-The ported slice is every corpus stream (zflac_tpu.testing.make_corpus)
-with two channels and at most 16 bits. Its streams are grouped here by
-what each exercises, and each group has its own test file, so that the
-groups run in parallel under pytest-xdist's per-file scheduling.
-test_torch_device.py checks that the groups cover the slice exactly.
+Every corpus stream (zflac_tpu.testing.make_corpus) is in exactly one
+group here, by what it exercises, and each group has its own test file,
+so that the groups run in parallel under pytest-xdist's per-file
+scheduling. test_torch_device.py checks that the groups cover the
+corpus exactly.
 """
 
 import numpy as np
@@ -30,6 +30,18 @@ BLOCKING_STREAMS = (
     "blocksize 576", "blocksize 725", "blocksize 1000", "blocksize 1152",
     "blocksize 1937", "blocksize 2304", "blocksize 4096", "blocksize 4608",
     "uncommon blocksize", "variable blocksize",
+)
+# 17-32 bits: the 32-bit container (lpc2w), and the 32-bit streams whose
+# side channels carry 33-bit samples (wide chunks, lpc2w33).
+HIRES_STREAMS = (
+    "bps 20", "bps 24", "rice2", "samplerate 192k", "hi-res 24/96",
+    "bps 32", "hi-res 32bit", "hi-res 32bit mid_side",
+    "hi-res 32bit left_side",
+)
+# Channel counts other than two (the general tail).
+CHANNEL_STREAMS = (
+    "channels 1", "channels 3", "channels 4", "channels 5", "channels 6",
+    "channels 7", "channels 8", "surround 8ch 24bit", "wasted bits 12of16",
 )
 
 

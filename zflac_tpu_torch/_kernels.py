@@ -37,6 +37,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _LAUNCHERS = {
     "rice16": ("zft_rice16_rows", (_P, _P, _P, _I, _I, _I)),
     "lpc2": ("zft_lpc2", (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I)),
+    "lpc2w": ("zft_lpc2w", (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I)),
+    "lpc2w33": ("zft_lpc2w33", (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I)),
     "packtail": ("zft_packtail", (_P, _I, _I, _P, _P, _P, _P, _I, _I)),
 }
 

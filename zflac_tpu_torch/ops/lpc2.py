@@ -45,21 +45,29 @@ def lpc2_reconstruct(rows_t, cfwd_t, shift, order):
     the kernel."""
     if _kernels.route(rows_t, cfwd_t, shift, order) == "cpu":
         return lpc2_reconstruct_ref(rows_t, cfwd_t, shift, order)
+    return launch_recurrence("lpc2", torch.int32, rows_t, cfwd_t, shift,
+                             order)
+
+
+def launch_recurrence(name, dtype, rows_t, cfwd_t, shift, order):
+    """Check the arguments of the LPC recurrence kernel `name` (lpc2,
+    lpc2w, lpc2w33: rows and output of `dtype`, the rest int32) and
+    launch it on CUDA tensors. Returns the output [B, n]."""
     B, n = rows_t.shape
     hist = cfwd_t.shape[0]
     if hist not in HISTS:
-        raise ValueError(f"lpc2: hist {hist} (kernel takes {HISTS})")
+        raise ValueError(f"{name}: hist {hist} (kernel takes {HISTS})")
     if B % 8:
-        raise ValueError(f"lpc2: B {B} is not a multiple of 8")
-    _kernels.check(rows_t, "rows_t", torch.int32, inner_contiguous=True)
+        raise ValueError(f"{name}: B {B} is not a multiple of 8")
+    _kernels.check(rows_t, "rows_t", dtype, inner_contiguous=True)
     _kernels.check(cfwd_t, "cfwd_t", torch.int32, shape=(hist, n),
                    inner_contiguous=True)
     _kernels.check(shift, "shift", torch.int32, shape=(n,))
     _kernels.check(order, "order", torch.int32, shape=(n,))
-    out = torch.empty((B, n), dtype=torch.int32, device=rows_t.device)
+    out = torch.empty((B, n), dtype=dtype, device=rows_t.device)
     if n == 0:
         return out
-    _kernels.launch("lpc2", rows_t.device, rows_t.data_ptr(),
+    _kernels.launch(name, rows_t.device, rows_t.data_ptr(),
                     rows_t.stride(0), cfwd_t.data_ptr(), cfwd_t.stride(0),
                     shift.data_ptr(), order.data_ptr(), out.data_ptr(),
                     B, n, hist)

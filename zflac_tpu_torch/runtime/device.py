@@ -9,16 +9,21 @@ chunk. Phase 2 uploads that buffer with one pinned, stream-ordered
 host-to-device copy and reconstructs the chunk on the device:
 
   rice16 kernel -> patch scatter, warm-up splice, live mask ->
-  per class: const broadcast | verbatim | fixed cumsums | lpc2 kernel
-  -> stack + transpose -> packtail kernel -> [Fp, Bp, 2] PCM.
+  per class: const broadcast | verbatim | fixed cumsums | LPC kernel
+  -> stack + transpose -> tail -> [Fp, Bp, C] PCM.
 
-The three kernels are hand-written CUDA (csrc/); the ops between them
-are plain tensor ops, as XLA runs them in the JAX package. On CPU
-tensors every kernel wrapper runs its plain PyTorch version instead.
+The LPC kernel is lpc2 in the 8/16-bit containers, lpc2w (64-bit
+accumulator) in the 32-bit container and lpc2w33 on wide chunks, whose
+33-bit side channels make every value of the chunk int64. The tail is
+the packtail kernel for stereo in the 8/16-bit containers, else plain
+ops: row gather, wasted-bits shift, decorrelation, transpose and a
+wrapping cast to the container dtype. The kernels are hand-written
+CUDA (csrc/); the ops between them are plain tensor ops, as XLA runs
+them in the JAX package. On CPU tensors every kernel wrapper runs its
+plain PyTorch version instead.
 
-Slice covered: stereo streams in an 8- or 16-bit container. Other
-channel counts, the 32-bit container (17-32 bps) and 33-bit side
-channels raise NotImplementedError from `reconstruct_pack2`.
+Every stream the JAX package's decode_to_device takes is covered: 1-8
+channels, containers 8, 16 and 32, and 33-bit side channels.
 
 This module imports no JAX: the jax-free host pieces of the JAX
 package's runtime (chunk scan, frame estimate, class caps, MD5 check,
@@ -44,11 +49,16 @@ from zflac_tpu.oracle import parse_metadata
 from zflac_tpu.result import DecodedFLAC, container_dtype
 
 from ..ops.lpc2 import lpc2_reconstruct
+from ..ops.lpc2w import lpc2w33_reconstruct, lpc2w_reconstruct
 from ..ops.packtail import packtail
 from ..ops.rice16 import rice16_unpack_rows
-from .reconstruct import fixed_integrate_t
+from .reconstruct import decorrelate2, fixed_integrate_t
+from .wide import join_i64, wrap_to
 
 _HIST = {"lpc8": 8, "lpc16": 16, "lpc32": 32}
+LPC_KERNELS = {"lpc2": lpc2_reconstruct, "lpc2w": lpc2w_reconstruct,
+               "lpc2w33": lpc2w33_reconstruct}
+_CONTAINER = {8: torch.int8, 16: torch.int16, 32: torch.int32}
 
 
 @dataclass(frozen=True)
@@ -76,6 +86,11 @@ class Pack2Geom:
     @property
     def Ssort(self) -> int:
         return sum(np_ for _, np_ in self.classes)
+
+    @property
+    def wide(self) -> bool:
+        """A chunk with 33-bit side channels: its values are int64."""
+        return "warm_hi" in self.off
 
     def sect(self, buf, name: str, n: int):
         """View of section `name`'s first n words of the buffer."""
@@ -108,26 +123,12 @@ def _patch_rows_layout(out, pidx, pval):
     return out
 
 
-def _check_slice(geom: Pack2Geom, container_bits: int) -> None:
-    if "warm_hi" in geom.off:
-        raise NotImplementedError(
-            "33-bit side channels (32-bit stereo with decorrelation) are "
-            "not ported yet: ROADMAP.md §1, '33-bit side channels'")
-    if container_bits == 32:
-        raise NotImplementedError(
-            "the 32-bit container (17-32 bps, lpc2w kernel) is not ported "
-            "yet: ROADMAP.md §1, '24-bit'")
-    if geom.C != 2 or container_bits not in (8, 16):
-        raise NotImplementedError(
-            f"{geom.C}-channel streams (general tail) are not ported yet: "
-            "ROADMAP.md §1, 'The rest of the int32 pack2 path'")
-
-
 def residual_rows(buf, geom: Pack2Geom):
     """Stage 1 of reconstruct_pack2: the time-major rows [Bp, Ssort]
-    int32 (warm-ups spliced in, residuals after, zero past each
-    subframe's block size) from the rice16 kernel and the scan's
-    patches. The JAX package's stage="rows"."""
+    (warm-ups spliced in, residuals after, zero past each subframe's
+    block size) from the rice16 kernel and the scan's patches; int32,
+    or int64 on a wide chunk. The JAX package's stage="rows" (its wide
+    path keeps these rows as (hi, lo) pairs)."""
     Bp, W, NGp, Ssort = geom.Bp, geom.W, geom.NGp, geom.Ssort
     sect = geom.sect
     win = sect(buf, "win", W * NGp).view(W, NGp)
@@ -142,6 +143,13 @@ def residual_rows(buf, geom: Pack2Geom):
     # >= order), so the splice comes after them. warmlen is 1 (const)
     # or the order (<= 32), so the splice touches the first 32 rows.
     out = rice16_unpack_rows(win, meta, Ssort=Ssort)
+    if geom.wide:
+        # The rice16 residuals are int32-exact; warm-ups and patches
+        # (verbatim samples) may have 33 bits.
+        out = out.long()
+        pval = join_i64(sect(buf, "pval_hi", geom.n_patch_p), pval)
+        warm_t = join_i64(
+            sect(buf, "warm_hi", Ssort * 32).view(32, Ssort), warm_t)
     _patch_rows_layout(out, pidx, pval)
     rows_t = out[:Bp]
     row = torch.arange(Bp, device=buf.device)[:, None]
@@ -159,8 +167,17 @@ def _class_slices(geom: Pack2Geom):
         base += np_
 
 
+def lpc_kernel(geom: Pack2Geom, container_bits: int) -> str:
+    """The LPC kernel of the chunk's LPC classes (a LPC_KERNELS key):
+    lpc2w33 on a wide chunk, lpc2w in the 32-bit container (the
+    reference's 64-bit accumulator for 17-32 bps), else lpc2."""
+    if geom.wide:
+        return "lpc2w33"
+    return "lpc2w" if container_bits == 32 else "lpc2"
+
+
 def lpc_class_inputs(rows_t, buf, geom: Pack2Geom) -> dict:
-    """The lpc2 kernel's arguments for each LPC class of the chunk:
+    """The LPC kernel's arguments for each LPC class of the chunk:
     class name -> (rows [Bp, n], cfwd [hist, n], shift [n], order [n])
     over the class's lane slice."""
     Ssort = geom.Ssort
@@ -172,16 +189,21 @@ def lpc_class_inputs(rows_t, buf, geom: Pack2Geom) -> dict:
             for name, sl in _class_slices(geom) if name in _HIST}
 
 
-def sorted_stack(rows_t, buf, geom: Pack2Geom):
+def sorted_stack(rows_t, buf, geom: Pack2Geom, *, container_bits: int):
     """Stage 2 of reconstruct_pack2: every class reconstructed on its
     static lane slice (const broadcast, verbatim, fixed cumsums, the
-    lpc2 kernel), stacked with one dead zero lane (the `inv` sentinel
-    for padded stream slots) and transposed to [Ssort + 1, Bp] for the
-    per-frame row gather. The JAX package's stage="transpose"."""
+    LPC kernel of lpc_kernel), stacked with one dead zero lane (the
+    `inv` sentinel for padded stream slots) and transposed to
+    [Ssort + 1, Bp] for the per-frame row gather, in the rows' dtype.
+    The JAX package's stage="transpose"."""
     Bp, Ssort = geom.Bp, geom.Ssort
     order = geom.sect(buf, "order", Ssort)
     seeds_t = geom.sect(buf, "seeds", Ssort * 4).view(4, Ssort)
+    if geom.wide:
+        seeds_t = join_i64(
+            geom.sect(buf, "seeds_hi", Ssort * 4).view(4, Ssort), seeds_t)
     lpc = lpc_class_inputs(rows_t, buf, geom)
+    lpc_fn = LPC_KERNELS[lpc_kernel(geom, container_bits)]
     seg_out = []
     for name, sl in _class_slices(geom):
         rc = rows_t[:, sl]                        # [Bp, n] time-major
@@ -192,32 +214,55 @@ def sorted_stack(rows_t, buf, geom: Pack2Geom):
         elif name == "fixed":
             seg_out.append(fixed_integrate_t(rc, order[sl], seeds_t[:, sl]))
         else:
-            seg_out.append(lpc2_reconstruct(*lpc[name]))
-    seg_out.append(torch.zeros((Bp, 1), dtype=torch.int32,
+            seg_out.append(lpc_fn(*lpc[name]))
+    seg_out.append(torch.zeros((Bp, 1), dtype=rows_t.dtype,
                                device=buf.device))
     return torch.cat(seg_out, dim=1).t().contiguous()
 
 
 def tail_inputs(buf, geom: Pack2Geom):
-    """The packtail kernel's per-frame sections: (inv, wasted,
-    chcode)."""
+    """The tail's per-frame sections: (inv, wasted, chcode)."""
     return (geom.sect(buf, "inv", geom.Sp),
             geom.sect(buf, "wasted", geom.Sp),
             geom.sect(buf, "chcode", geom.Fp))
 
 
+def general_tail(stack, buf, geom: Pack2Geom, *, container_bits: int):
+    """Stage 3 for every chunk but stereo in an 8/16-bit container:
+    the stack's rows gathered into stream order by `inv`, shifted left
+    by their wasted bits, reshaped to [Fp, C, Bp], decorrelated when
+    C == 2, transposed to [Fp, Bp, C] and cast to the container dtype
+    with wraparound. On a wide chunk this runs in int64 and keeps the
+    low words (zflac_tpu/runtime/device.py:286-303 and
+    _reconstruct_pack2_wide33 :393-408)."""
+    Fp, C, Bp = geom.Fp, geom.C, geom.Bp
+    if geom.wide and C != 2:
+        raise ValueError(f"wide chunk with {C} channels: 33-bit side "
+                         "channels exist only in stereo")
+    inv, wasted, chcode = tail_inputs(buf, geom)
+    # The clamp keeps a corrupt buffer's indices inside the stack, as
+    # XLA's gather clamps them.
+    inv = torch.clamp(inv, 0, stack.shape[0] - 1).long()
+    frames = (stack[inv] << wasted[:, None]).view(Fp, C, Bp)
+    if C == 2:
+        frames = torch.stack(decorrelate2(frames[:, 0], frames[:, 1],
+                                          chcode[:, None]), dim=1)
+    pcm = frames.transpose(1, 2).contiguous()
+    return wrap_to(pcm, _CONTAINER[container_bits])
+
+
 def reconstruct_pack2(buf, geom: Pack2Geom, *, container_bits: int):
-    """One uploaded pack2 chunk -> container-width stereo PCM
-    [Fp, Bp, 2] (int16 or int8) on the buffer's device. Counterpart of
-    the JAX package's _reconstruct_pack2_core on its stereo 8/16-bit
-    path."""
-    _check_slice(geom, container_bits)
+    """One uploaded pack2 chunk -> container-width PCM [Fp, Bp, C] on
+    the buffer's device. Counterpart of the JAX package's
+    _reconstruct_pack2_core and _reconstruct_pack2_wide33."""
     rows_t = residual_rows(buf, geom)
-    stack = sorted_stack(rows_t, buf, geom)
+    stack = sorted_stack(rows_t, buf, geom, container_bits=container_bits)
+    if geom.C != 2 or container_bits not in (8, 16):
+        return general_tail(stack, buf, geom,
+                            container_bits=container_bits)
     packed = packtail(stack, *tail_inputs(buf, geom), Fp=geom.Fp,
                       container_bits=container_bits)
-    cdtype = torch.int16 if container_bits == 16 else torch.int8
-    return packed.view(cdtype).view(geom.Fp, geom.Bp, 2)
+    return packed.view(_CONTAINER[container_bits]).view(geom.Fp, geom.Bp, 2)
 
 
 @dataclass
@@ -315,8 +360,8 @@ def verify_stream_md5(interleaved: np.ndarray, bps: int,
     (zflac.zig:267-277)."""
     nbytes = fmt.md5_bytes_per_sample(bps)
     if nbytes == 3:
-        raw = interleaved.astype("<i4").tobytes()
-        raw = b"".join(raw[i:i + 3] for i in range(0, len(raw), 4))
+        raw = interleaved.astype("<i4").view(np.uint8).reshape(-1, 4)[
+            :, :3].tobytes()
     else:
         raw = interleaved.astype(f"<i{nbytes}", copy=False).tobytes()
     return hashlib.md5(raw).digest() == expected
@@ -445,8 +490,7 @@ def decode_to_device(data: bytes, *, device, check_crc: bool = False,
 
     Returns a DeviceDecoded, or None where the JAX package's
     decode_to_device declines (exotic or mismatching streams, no
-    native scan library). Streams outside the ported slice raise
-    NotImplementedError. A CUDA device with no card raises; nothing
+    native scan library). A CUDA device with no card raises; nothing
     moves to the CPU by itself. The host scan runs in parallel
     (scan_workers=0 picks the core count, up to 8); uploads and
     kernels are queued on the current stream without waiting."""
