@@ -16,20 +16,30 @@ library from the checkout's sources, then:
      2**21 samples at 24 bits; bench32ms: 2**20 samples at 32 bits,
      mid-side, whose 33-bit side channels make wide chunks), and every
      corpus stream;
-  4. holds each kernel (rice16, lpc2, packtail, lpc2w, lpc2w33) bit for
-     bit against its plain PyTorch version on the card, on every
-     stream's real chunk sections and on seeded synthetic inputs, and
-     times both at the bench chunks' shapes (CUDA events, median of 25
-     batches of back-to-back calls after warm-up);
-  5. for each bench stream, resets the launch counters, drives
-     zflac_tpu_torch.decode_to_device over it, reads the counters (each
-     kernel of that stream's path must have launched), and checks the
+  4. holds each kernel bit for bit against its plain PyTorch version on
+     the card: rice16, rice16_flat, lpc2, packtail, lpc2w and lpc2w33 on
+     every stream's real pack2 chunk sections, lpc and lpc64 on the LPC
+     classes of every stream's rows-engine plan (gathered as the rows
+     engine gathers them, a safe_lpc plan of bench16 too), and all of
+     them on seeded synthetic inputs; then times each kernel and its
+     plain version at the bench shapes (CUDA events, median of 25
+     batches of back-to-back calls after warm-up; 5 for the plain lpc
+     and lpc64, a Python loop of 4096 steps);
+  5. drives both main paths, each with the launch counters reset just
+     before and read just after (each kernel of the path must have
+     launched): decode_to_device on each bench stream, and the rows
+     engine, decode(engine="torch"), on each bench stream; checks the
      PCM against the encoder's input and the native C++ decoder, with
-     the stream MD5 verified; then the same for every corpus stream,
-     bench16 in 256-frame chunks, and a corrupted stream that must
-     raise InvalidChecksum;
-  6. times the device reconstruction of each bench chunk and the whole
-     decode_to_device call on bench16 and bench24.
+     the stream MD5 verified; then the same for every corpus stream
+     through both engines, bench16 in 256-frame chunks, and a corrupted
+     stream that must raise InvalidChecksum;
+  6. runs the rows engine's other entry points on the card:
+     decode_pipelined on bench16 (several chunks), stream_decode on
+     bench24, decode_range on bench16 (three ranges) and decode_tolerant
+     on a corrupted corpus stream (against the same call on the CPU);
+  7. times the device reconstruction of each bench chunk, the whole
+     decode_to_device call on bench16 and bench24, and decode(engine=
+     "torch") on both, end to end and in its phases.
 
 Any failure raises, and the exit code is then not 0. With no CUDA
 device it exits 1 before doing anything. The last lines are one JSON
@@ -56,20 +66,26 @@ from zflac_tpu import format as fmt
 from zflac_tpu.bitio import BitReader
 from zflac_tpu.encoder import EncoderConfig, encode
 from zflac_tpu.errors import InvalidChecksum
+from zflac_tpu.index import build_plan
 from zflac_tpu.index.native_indexer import (decode_cpu_native,
                                             native_available, pack2_range)
 from zflac_tpu.oracle import parse_metadata
 from zflac_tpu.result import container_dtype
 from zflac_tpu.testing import correlated_stereo, make_corpus
 from zflac_tpu_torch import _kernels
+from zflac_tpu_torch.ops.lpc import (KERNEL as LPC_ROWS_KERNEL,
+                                     lpc_reconstruct, lpc_reconstruct_ref)
 from zflac_tpu_torch.ops.lpc2 import lpc2_reconstruct_ref
 from zflac_tpu_torch.ops.lpc2w import (lpc2w33_reconstruct_ref,
                                        lpc2w_reconstruct_ref)
 from zflac_tpu_torch.ops.packtail import packtail, packtail_ref
 from zflac_tpu_torch.ops.rice16 import (K2_ESCAPE, K2_INVALID,
+                                        rice16_unpack, rice16_unpack_ref,
                                         rice16_unpack_rows,
                                         rice16_unpack_rows_ref)
+from zflac_tpu_torch.runtime import decode as rd
 from zflac_tpu_torch.runtime import device as rt
+from zflac_tpu_torch.runtime.reconstruct import lpc_class_inputs
 
 BENCH_BLOCK = 4096
 # name -> (samples per channel, bits per sample, stereo mode, the
@@ -79,9 +95,17 @@ BENCH = {
     "bench24": (1 << 21, 24, None, ("rice16", "lpc2w")),
     "bench32ms": (1 << 20, 32, "mid_side", ("rice16", "lpc2w33")),
 }
+# The kernels each bench stream's rows-engine path must launch.
+ROWS_PATH = {"bench16": ("lpc",), "bench24": ("lpc64",),
+             "bench32ms": ("lpc64",)}
 CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                      ".bench_cache")
 REPS = 25
+# Batches for the plain lpc and lpc64 (4096 Python-loop steps a call).
+PLAIN_LPC_REPS = 5
+# Frames per chunk for decode_pipelined and stream_decode (8 and 4
+# chunks on bench16 and bench24).
+PIPE_FRAMES = 128
 
 KERNELS = {
     # name -> (source in the repo, the Pallas kernel's entry it replaces)
@@ -93,6 +117,13 @@ KERNELS = {
     "lpc2w": ("zflac_tpu_torch/csrc/lpc2w.cu", "zflac_tpu/ops/lpc2w.py:134"),
     "lpc2w33": ("zflac_tpu_torch/csrc/lpc2w.cu",
                 "zflac_tpu/ops/lpc2w.py:297"),
+    "lpc": ("zflac_tpu_torch/csrc/lpc.cu", "zflac_tpu/ops/lpc.py:81"),
+    # Not a Pallas kernel: the XLA scan the JAX rows engine runs at int64.
+    "lpc64": ("zflac_tpu_torch/csrc/lpc.cu",
+              "zflac_tpu/runtime/reconstruct.py:67"),
+    # K1's kernel with Ssort = NG: the flat layout (on no decode path).
+    "rice16_flat": ("zflac_tpu_torch/csrc/rice16.cu",
+                    "zflac_tpu/ops/rice16.py:160"),
 }
 LPC_PLAIN = {"lpc2": lpc2_reconstruct_ref, "lpc2w": lpc2w_reconstruct_ref,
              "lpc2w33": lpc2w33_reconstruct_ref}
@@ -201,15 +232,18 @@ class Diff:
 
 def kernel_checks(dev, diff: Diff, what: str, ck) -> dict:
     """Each kernel of the chunk's path against its plain version, on
-    the chunk's real sections: rice16, the chunk's LPC kernel on each
-    LPC class, and packtail where the chunk takes it (stereo in an
-    8/16-bit container). Returns the kernel inputs."""
+    the chunk's real sections: rice16 (and its flat layout,
+    rice16_flat), the chunk's LPC kernel on each LPC class, and
+    packtail where the chunk takes it (stereo in an 8/16-bit
+    container). Returns the kernel inputs."""
     buf, geom = rt.chunk_to_torch(ck, dev)
     win = geom.sect(buf, "win", geom.W * geom.NGp).view(geom.W, geom.NGp)
     meta = geom.sect(buf, "meta", geom.NGp)
     diff.check("rice16", what,
                rice16_unpack_rows(win, meta, Ssort=geom.Ssort),
                rice16_unpack_rows_ref(win, meta, Ssort=geom.Ssort))
+    diff.check("rice16_flat", what, rice16_unpack(win, meta),
+               rice16_unpack_ref(win, meta))
     cb = fmt.container_bits(ck.bits_per_sample)
     rows_t = rt.residual_rows(buf, geom)
     lpc_name = rt.lpc_kernel(geom, cb)
@@ -227,6 +261,30 @@ def kernel_checks(dev, diff: Diff, what: str, ck) -> dict:
                                 container_bits=cb))
     return dict(buf=buf, geom=geom, win=win, meta=meta, lpc=lpc,
                 lpc_name=lpc_name, stack=stack, tail=tail, cb=cb)
+
+
+def rows_lpc_checks(dev, diff: Diff, what: str, data: bytes,
+                    safe_lpc: bool = False) -> dict:
+    """lpc / lpc64 against their plain version on the LPC classes of the
+    stream's rows-engine plan, padded and gathered as the rows engine
+    does it (the lpc class at the stream's dtype, lpc_wide widened to
+    int64). Returns class name -> kernel arguments."""
+    plan = build_plan(data)
+    if safe_lpc:
+        plan.wide = plan.kind == 3
+    arrays, class_idx = rd.pad_plan(plan)
+    t, ci = rd.plan_to_torch(arrays, class_idx, dev)
+    out = {}
+    for name in ("lpc", "lpc_wide"):
+        if name not in ci:
+            continue
+        args = lpc_class_inputs(t["rows"], t["coeffs"], t["shift"],
+                                t["order"], ci[name],
+                                widen=name == "lpc_wide")
+        diff.check(LPC_ROWS_KERNEL[args[0].dtype], f"{what} {name}",
+                   lpc_reconstruct(*args), lpc_reconstruct_ref(*args))
+        out[name] = args
+    return out
 
 
 # Shift amounts for the wide recurrences: every value the buffer's
@@ -256,11 +314,13 @@ def hires_inputs(rng, n: int, B: int, hist: int, warm_bits: int):
 
 
 def synthetic_checks(dev, diff: Diff) -> None:
-    """Seeded inputs beyond what the streams reach: rice16 with W 8 and
-    16 over random windows with escape, invalid and skip groups; lpc2
-    with 15-bit coefficients (int32 wraparound) at hist 8/16/32 and
-    padded block sizes; packtail over all four stereo modes, wasted
-    bits and both containers."""
+    """Seeded inputs beyond what the streams reach: rice16 and
+    rice16_flat with W 8 and 16 over random windows with escape,
+    invalid and skip groups; lpc2 with 15-bit coefficients (int32
+    wraparound) at hist 8/16/32 and padded block sizes; lpc2w, lpc2w33,
+    lpc and lpc64 with orders up to the history and the whole shift
+    range; packtail over all four stereo modes, wasted bits and both
+    containers."""
     rng = np.random.default_rng(2024)
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     for W, Ssort, GP1 in ((8, 1024, 6), (16, 384, 5)):
@@ -277,6 +337,8 @@ def synthetic_checks(dev, diff: Diff) -> None:
         diff.check("rice16", f"synthetic W={W}",
                    rice16_unpack_rows(w_t, m_t, Ssort=Ssort),
                    rice16_unpack_rows_ref(w_t, m_t, Ssort=Ssort))
+        diff.check("rice16_flat", f"synthetic W={W}", rice16_unpack(w_t, m_t),
+                   rice16_unpack_ref(w_t, m_t))
     for hist, B in ((8, 640), (16, 1152), (32, 256)):
         n = 256
         order = rng.integers(1, hist + 1, n).astype(np.int32)
@@ -297,6 +359,21 @@ def synthetic_checks(dev, diff: Diff) -> None:
                 diff.check(name, f"synthetic hist={hist} B={B}",
                            rt.LPC_KERNELS[name](*args),
                            LPC_PLAIN[name](*args))
+    for dtype, warm_bits in ((np.int32, 16), (np.int64, 33)):
+        for B in (256, 640, 4608):
+            rows, cf, shift, order = hires_inputs(rng, 256, B, 32,
+                                                  warm_bits)
+            if dtype == np.int32:   # 14-bit coefficients: int32 wraps
+                cf = rng.integers(-(1 << 13), 1 << 13, cf.shape) * (
+                    np.arange(32)[:, None] < order[None, :])
+            # The rows engine's coefficient layout: row j multiplies
+            # s[t-32+j], the reverse of cfwd's.
+            args = (t(rows.astype(dtype)),
+                    t(np.ascontiguousarray(cf[::-1], dtype=np.int32)),
+                    t(shift), t(order))
+            name = LPC_ROWS_KERNEL[args[0].dtype]
+            diff.check(name, f"synthetic B={B}", lpc_reconstruct(*args),
+                       lpc_reconstruct_ref(*args))
     Fp, Bp, rows = 64, 384, 129
     for cb in (16, 8):
         args = (t(rng.integers(-(1 << 15), 1 << 15, (rows, Bp))
@@ -355,6 +432,118 @@ def e2e_times(data: bytes, n_samples: int, line: str, what: str) -> None:
         f"device {med['wait_ms']:.3f} ms; on {line}")
 
 
+def native_pcm(data: bytes) -> np.ndarray:
+    """The native C++ decoder's output, normalized."""
+    native, _ = decode_cpu_native(data)
+    bps = parse_metadata(BitReader(data)).bits_per_sample
+    sh = fmt.normalization_shift(bps)
+    return native << sh if sh else native
+
+
+def rows_decode_check(what: str, data: bytes, want: np.ndarray):
+    """The rows engine on the card (MD5 verified inside decode) must
+    equal `want` and the native decoder."""
+    r = zflac_tpu_torch.decode(data, engine="torch", device="cuda")
+    torch.cuda.synchronize()
+    for name, arr in (("decode(engine=torch)", r.interleaved),
+                      ("native", native_pcm(data))):
+        if not np.array_equal(arr, want):
+            raise AssertionError(f"{what}: {name} differs from the "
+                                 "encoder input")
+    return r
+
+
+def rows_entry_points(benches: dict, corpus: dict) -> None:
+    """decode_pipelined, stream_decode, decode_range and decode_tolerant
+    on the card."""
+    data16, want16 = benches["bench16"]
+    r = zflac_tpu_torch.decode_pipelined(data16, chunk_frames=PIPE_FRAMES,
+                                         device="cuda")
+    if r.stats["chunks"] < 2 or not np.array_equal(r.interleaved, want16):
+        raise AssertionError(f"decode_pipelined on bench16: {r.stats}, "
+                             "PCM differs or one chunk")
+    say("rows", f"decode_pipelined on bench16 (MD5 verified): "
+        f"{r.stats['chunks']} chunks, bit-exact")
+
+    data24, want24 = benches["bench24"]
+    parts = list(zflac_tpu_torch.stream_decode(
+        data24, chunk_frames=PIPE_FRAMES, device="cuda"))
+    if len(parts) < 2 or not np.array_equal(np.concatenate(parts), want24):
+        raise AssertionError("stream_decode on bench24: PCM differs or "
+                             "one chunk")
+    say("rows", f"stream_decode on bench24: {len(parts)} chunks, "
+        "concatenation bit-exact")
+
+    n16 = BENCH["bench16"][0]
+    for start, count in ((0, 4096), (1234567, 100000),
+                         (n16 - 5000, 10000)):
+        r = zflac_tpu_torch.decode_range(data16, start, count,
+                                         device="cuda")
+        end = min(start + count, n16)
+        if not np.array_equal(r.interleaved, want16[start * 2:end * 2]):
+            raise AssertionError(f"decode_range({start}, {count}) on "
+                                 "bench16 differs from the full decode")
+    say("rows", "decode_range on bench16: three ranges equal the slices "
+        "of the full decode")
+
+    data = corpus["lpc order 8"][0]
+    plan = build_plan(data)
+    bad = bytearray(data)
+    off = int(plan.frame_byte_offset[2]) + 40
+    for i in range(8):
+        bad[off + i] ^= 0xA5
+    got = zflac_tpu_torch.decode_tolerant(bytes(bad), device="cuda")
+    ref = zflac_tpu_torch.decode_tolerant(bytes(bad), device="cpu")
+    if got.stats != ref.stats or got.stats["resyncs"] < 1 or \
+            not np.array_equal(got.interleaved, ref.interleaved):
+        raise AssertionError(f"decode_tolerant: card {got.stats} vs CPU "
+                             f"{ref.stats}")
+    say("rows", f"decode_tolerant on 'lpc order 8' with frame 2 "
+        f"corrupted: {got.stats}, PCM equal to the same call on the CPU")
+
+
+def rows_times(data: bytes, n_samples: int, line: str, what: str) -> None:
+    """decode(engine="torch") end to end on `data`, median of 5 on the
+    host clock; then its phases, median of 5, from a phased run of the
+    same steps (runtime/decode.py) with a synchronize after the
+    launches."""
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        zflac_tpu_torch.decode(data, engine="torch", device="cuda")
+        walls.append((time.perf_counter() - a) * 1e3)
+    names = ("plan build", "padding and packing", "H2D + enqueue",
+             "device wait", "D2H + assembly", "MD5 + normalization")
+    phases = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        ts = [time.perf_counter()]
+        plan = build_plan(data)
+        ts.append(time.perf_counter())
+        staged = rd.stage_plan(plan)
+        ts.append(time.perf_counter())
+        pcm = rd.launch_plan(staged, "cuda")
+        ts.append(time.perf_counter())
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter())
+        out = rd._assemble(plan, pcm[:plan.num_frames].cpu().numpy())
+        ts.append(time.perf_counter())
+        rd._finish(out, plan.info.bits_per_sample, plan.info.md5, True)
+        ts.append(time.perf_counter())
+        phases.append([(b - a) * 1e3 for a, b in zip(ts, ts[1:])])
+    med = [statistics.median(p[i] for p in phases)
+           for i in range(len(names))]
+    e2e = statistics.median(walls)
+    say("times", f"{what}: decode(engine=\"torch\") end to end (host "
+        f"PCM, MD5 verified): {e2e:.3f} ms = "
+        f"{n_samples / e2e / 1e3:.1f} Msamples/s, median of 5, host "
+        f"clock, {os.cpu_count()} host cores; phase medians (host clock, "
+        f"phased run) " + ", ".join(
+            f"{n} {m:.3f} ms" for n, m in zip(names, med))
+        + f" (sum {sum(med):.3f} ms); on {line}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -411,6 +600,12 @@ def main() -> None:
         n_chunks[name] = len(main_chunks)
     for name, (data, _) in corpus.items():
         kernel_checks(dev, diff, name, first_chunk(data))
+    rows_ins = {name: rows_lpc_checks(dev, diff, f"{name} rows plan", data)
+                for name, (data, _) in benches.items()}
+    rows_lpc_checks(dev, diff, "bench16 safe_lpc rows plan",
+                    benches["bench16"][0], safe_lpc=True)
+    for name, (data, _) in corpus.items():
+        rows_lpc_checks(dev, diff, f"{name} rows plan", data)
     synthetic_checks(dev, diff)
     torch.cuda.synchronize()
     for name, d in ins.items():
@@ -419,9 +614,14 @@ def main() -> None:
             f"Ssort {g.Ssort}, W {g.W}, NGp {g.NGp}, wide {g.wide}, "
             f"classes {g.classes}, LPC kernel {d['lpc_name']}; "
             f"{n_chunks[name]} parallel-scan chunks")
+    for name, cls in rows_ins.items():
+        say("kernels", f"{name} rows-engine plan: LPC classes " + ", ".join(
+            f"{c} rows {list(a[0].shape)} {a[0].dtype}"
+            for c, a in cls.items()))
     say("kernels", f"bit-exact on the bench chunks, their parallel-scan "
-        f"chunks, {len(corpus)} corpus chunks and synthetic inputs; max "
-        f"|err| {diff.err}")
+        f"chunks, {len(corpus)} corpus chunks, the rows-engine plans of "
+        f"the bench and corpus streams and synthetic inputs; max |err| "
+        f"{diff.err}")
 
     # Each kernel is timed on the first LPC class (lpc8 in all three) of
     # the bench chunk whose path runs it.
@@ -435,27 +635,38 @@ def main() -> None:
     timed = {
         "rice16": (lambda: rice16_unpack_rows(win, meta, Ssort=Ss),
                    lambda: rice16_unpack_rows_ref(win, meta, Ssort=Ss)),
+        "rice16_flat": (lambda: rice16_unpack(win, meta),
+                        lambda: rice16_unpack_ref(win, meta)),
         "packtail": (lambda: packtail(*tail, **tkw),
                      lambda: packtail_ref(*tail, **tkw)),
     }
     for k, a in lpc_args.items():
         timed[k] = (lambda k=k, a=a: rt.LPC_KERNELS[k](*a),
                     lambda k=k, a=a: LPC_PLAIN[k](*a))
+    # lpc and lpc64 on the lpc class of bench16's and bench24's
+    # rows-engine plans.
+    timed_on.update(lpc="bench16 rows", lpc64="bench24 rows")
+    lpc_args["lpc"] = rows_ins["bench16"]["lpc"]
+    lpc_args["lpc64"] = rows_ins["bench24"]["lpc"]
+    for k in ("lpc", "lpc64"):
+        timed[k] = (lambda a=lpc_args[k]: lpc_reconstruct(*a),
+                    lambda a=lpc_args[k]: lpc_reconstruct_ref(*a))
     times = {}
     for name in KERNELS:
         kern, plain = timed[name]
-        times[name] = (cuda_ms(kern), cuda_ms(plain))
+        plain_reps = PLAIN_LPC_REPS if name in ("lpc", "lpc64") else REPS
+        times[name] = (cuda_ms(kern), cuda_ms(plain, plain_reps))
         where = timed_on.get(name, "bench16")
         shape = ""
         if name in lpc_args:
             B, n = lpc_args[name][0].shape
-            shape = (f" (rows [{B}, {n}], hist "
+            shape = (f" (rows [{B}, {n}] {lpc_args[name][0].dtype}, hist "
                      f"{lpc_args[name][1].shape[0]}: "
                      f"{times[name][0] / B * 1e6:.1f} ns per step)")
         say("kernels", f"{name} at {where} shapes{shape}: kernel "
-            f"{times[name][0]:.4f} ms, plain PyTorch {times[name][1]:.4f} "
-            f"ms (per call, median of {REPS} batches, CUDA events) on "
-            f"{line}")
+            f"{times[name][0]:.4f} ms (median of {REPS} batches), plain "
+            f"PyTorch {times[name][1]:.4f} ms (median of {plain_reps} "
+            f"batches); per call, CUDA events, on {line}")
 
     # ---- the main path, counted: each bench stream's own run ----
     launches = {}
@@ -475,10 +686,28 @@ def main() -> None:
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
 
+    # ---- the rows engine's main path, counted per bench stream ----
+    for name, (data, want) in benches.items():
+        _kernels.launches.clear()
+        r = rows_decode_check(name, data, want)
+        got = dict(_kernels.launches)
+        say("rows", f"{name}: decode(engine=\"torch\", device=\"cuda\") "
+            f"(MD5 verified) == encoder input == native decoder; frames "
+            f"{r.stats['frames']}; kernel launches {got}")
+        missing = [k for k in ROWS_PATH[name] if not got.get(k)]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {name} "
+                                 f"rows-engine path: {missing}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
     for name, (data, want) in corpus.items():
         decode_check(name, data, want)
-    say("slice", f"{len(corpus)} corpus streams bit-exact (to_host with "
-        "MD5, interleaved_device, native decoder)")
+        rows_decode_check(name, data, want)
+    say("slice", f"{len(corpus)} corpus streams bit-exact through both "
+        "engines (decode_to_device: to_host with MD5, interleaved_device; "
+        "decode(engine=\"torch\") with MD5; native decoder)")
+    rows_entry_points(benches, corpus)
     dd4 = decode_check("bench16, chunk_frames=256", *benches["bench16"],
                        chunk_frames=256)
     if len(dd4.chunks) < 2:
@@ -508,6 +737,8 @@ def main() -> None:
             f"per call, median of {REPS} batches, CUDA events) on {line}")
     for name in ("bench16", "bench24"):
         e2e_times(benches[name][0], BENCH[name][0] * 2, line, name)
+    for name in ("bench16", "bench24"):
+        rows_times(benches[name][0], BENCH[name][0] * 2, line, name)
 
     records = [{"name": k, "route": "cuda", "source": src,
                 "replaces": rep, "launches": int(launches.get(k, 0)),

@@ -18,6 +18,7 @@ import zflac_tpu_torch  # noqa: E402
 from torch_slice import (  # noqa: E402
     BLOCKING_STREAMS,
     assert_same,
+    check_rows_engine,
     check_stream,
 )
 from zflac_tpu_torch.runtime import device as rt  # noqa: E402
@@ -29,6 +30,11 @@ pytestmark = pytest.mark.skipif(
 @pytest.mark.parametrize("name", BLOCKING_STREAMS)
 def test_slice_matches_jax(name, corpus):
     check_stream(name, corpus)
+
+
+@pytest.mark.parametrize("name", BLOCKING_STREAMS)
+def test_rows_engine_matches_jax(name, corpus):
+    check_rows_engine(name, corpus)
 
 
 @pytest.mark.parametrize("name,kw", [

@@ -24,6 +24,7 @@ from torch_slice import (  # noqa: E402
     FORMAT_STREAMS,
     HIRES_STREAMS,
     SUBFRAME_STREAMS,
+    check_rows_engine,
     check_stream,
 )
 
@@ -43,3 +44,8 @@ def test_stream_groups_cover_the_slice():
 @pytest.mark.parametrize("name", SUBFRAME_STREAMS)
 def test_slice_matches_jax(name, corpus):
     check_stream(name, corpus)
+
+
+@pytest.mark.parametrize("name", SUBFRAME_STREAMS)
+def test_rows_engine_matches_jax(name, corpus):
+    check_rows_engine(name, corpus)

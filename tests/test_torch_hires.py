@@ -13,7 +13,11 @@ torch.set_num_threads(1)
 
 from zflac_tpu.index.native_indexer import native_available  # noqa: E402
 
-from torch_slice import HIRES_STREAMS, check_stream  # noqa: E402
+from torch_slice import (  # noqa: E402
+    HIRES_STREAMS,
+    check_rows_engine,
+    check_stream,
+)
 
 pytestmark = pytest.mark.skipif(
     not native_available(), reason="native indexer unavailable")
@@ -22,3 +26,8 @@ pytestmark = pytest.mark.skipif(
 @pytest.mark.parametrize("name", HIRES_STREAMS)
 def test_slice_matches_jax(name, corpus):
     check_stream(name, corpus)
+
+
+@pytest.mark.parametrize("name", HIRES_STREAMS)
+def test_rows_engine_matches_jax(name, corpus):
+    check_rows_engine(name, corpus)

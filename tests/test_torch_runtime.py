@@ -167,8 +167,9 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import zflac_tpu_torch\n"
             "from zflac_tpu_torch.runtime import device, reconstruct, "
-            "wide\n"
-            "from zflac_tpu_torch.ops import rice16, lpc2, lpc2w, packtail\n"
+            "wide, decode, seek, pack, scatter\n"
+            "from zflac_tpu_torch.ops import rice16, lpc2, lpc2w, packtail, "
+            "lpc\n"
             "from zflac_tpu_torch import _kernels\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] == 'jax']\n"
@@ -193,7 +194,8 @@ def test_kernel_wrappers_refuse_other_devices():
     from zflac_tpu_torch.ops.lpc2w import (lpc2w33_reconstruct,
                                            lpc2w_reconstruct)
     from zflac_tpu_torch.ops.packtail import packtail
-    from zflac_tpu_torch.ops.rice16 import rice16_unpack_rows
+    from zflac_tpu_torch.ops.lpc import lpc_reconstruct
+    from zflac_tpu_torch.ops.rice16 import rice16_unpack, rice16_unpack_rows
 
     def meta(*shape):
         return torch.empty(shape, dtype=torch.int32, device="meta")
@@ -212,6 +214,17 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="device"):
         packtail(meta(129, 128), meta(8), meta(8), meta(4), Fp=4,
                  container_bits=16)
+    with pytest.raises(ValueError, match="device"):
+        rice16_unpack(meta(8, 1024), meta(1024))
+    with pytest.raises(ValueError, match="several devices"):
+        rice16_unpack(torch.zeros((8, 1024), dtype=torch.int32), meta(1024))
+    for dtype in (torch.int32, torch.int64):                # lpc, lpc64
+        rows = torch.empty((128, 128), dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="device"):
+            lpc_reconstruct(rows, meta(32, 128), meta(128), meta(128))
+        with pytest.raises(ValueError, match="several devices"):
+            lpc_reconstruct(torch.zeros((128, 128), dtype=dtype),
+                            meta(32, 128), meta(128), meta(128))
 
 
 def test_cuda_request_without_a_card_raises(corpus):
@@ -219,11 +232,62 @@ def test_cuda_request_without_a_card_raises(corpus):
     CPU on its own, and the kernels cannot be built without nvcc."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    data = corpus["lpc order 8"][0]
     with pytest.raises(RuntimeError, match="CUDA"):
-        zflac_tpu_torch.decode_to_device(corpus["lpc order 8"][0],
-                                         device="cuda")
+        zflac_tpu_torch.decode_to_device(data, device="cuda")
+    for call in (
+            lambda: zflac_tpu_torch.decode(data, engine="torch",
+                                           device="cuda"),
+            lambda: zflac_tpu_torch.decode_pipelined(data, device="cuda"),
+            lambda: list(zflac_tpu_torch.stream_decode(data,
+                                                       device="cuda")),
+            lambda: zflac_tpu_torch.decode_range(data, 0, 10,
+                                                 device="cuda"),
+            lambda: zflac_tpu_torch.decode_tolerant(data, device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
     try:
         _kernels.find_nvcc()
     except RuntimeError:
         with pytest.raises(RuntimeError, match="nvcc"):
             _kernels.library()
+
+
+def test_engine_guards(corpus):
+    """An unknown engine raises ValueError (no silent default path); the
+    torch engine, and each rows-engine entry point, needs an explicit
+    device; "auto" takes the native engine when it is available."""
+    data = corpus["lpc order 8"][0]
+    with pytest.raises(ValueError, match="unknown engine"):
+        zflac_tpu_torch.decode(data, engine="tpu", device="cpu")
+    with pytest.raises(ValueError, match="unknown engine"):
+        zflac_tpu_torch.decode(data, engine="cuda", device="cpu")
+    for call in (
+            lambda: zflac_tpu_torch.decode(data, engine="torch"),
+            lambda: zflac_tpu_torch.decode(data, safe_lpc=True),
+            lambda: zflac_tpu_torch.decode_pipelined(data),
+            lambda: list(zflac_tpu_torch.stream_decode(data)),
+            lambda: zflac_tpu_torch.decode_range(data, 0, 10),
+            lambda: zflac_tpu_torch.decode_tolerant(data)):
+        with pytest.raises(ValueError, match="explicit device"):
+            call()
+    assert zflac_tpu_torch.decode(data).stats["engine"] == "native"
+    r = zflac_tpu_torch.decode(data, engine="native")
+    np.testing.assert_array_equal(
+        r.interleaved,
+        zflac_tpu_torch.decode(data, engine="torch",
+                               device="cpu").interleaved)
+
+
+def test_entry_points_take_a_path(corpus, tmp_path):
+    """Like zflac_tpu's front door, the entry points take a file path as
+    well as bytes."""
+    data = corpus["lpc order 8"][0]
+    path = tmp_path / "s.flac"
+    path.write_bytes(data)
+    a = zflac_tpu_torch.decode(str(path), engine="torch", device="cpu")
+    b = zflac_tpu_torch.decode(data, engine="torch", device="cpu")
+    np.testing.assert_array_equal(a.interleaved, b.interleaved)
+    r = zflac_tpu_torch.decode_range(path, 100, 50, device="cpu")
+    np.testing.assert_array_equal(r.interleaved,
+                                  b.interleaved[200:300])

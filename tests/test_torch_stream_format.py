@@ -17,6 +17,7 @@ import zflac_tpu_torch  # noqa: E402
 from torch_slice import (  # noqa: E402
     FORMAT_STREAMS,
     assert_same,
+    check_rows_engine,
     check_stream,
 )
 
@@ -27,6 +28,11 @@ pytestmark = pytest.mark.skipif(
 @pytest.mark.parametrize("name", FORMAT_STREAMS)
 def test_slice_matches_jax(name, corpus):
     check_stream(name, corpus)
+
+
+@pytest.mark.parametrize("name", FORMAT_STREAMS)
+def test_rows_engine_matches_jax(name, corpus):
+    check_rows_engine(name, corpus)
 
 
 def _with_total(data: bytes, total: int) -> bytes:

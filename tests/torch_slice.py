@@ -77,3 +77,31 @@ def check_stream(name, corpus):
     dd = zflac_tpu_torch.decode_to_device(data, device="cpu")
     got = assert_same(dd, zflac_tpu.decode_to_device(data))
     np.testing.assert_array_equal(got.interleaved, expected_output(pcm, bps))
+
+
+# 16-bit LPC streams whose rows-engine cases also run with safe_lpc=True
+# (every LPC subframe in the int64 lpc_wide class: the lpc64 kernel).
+SAFE_LPC_STREAMS = ("lpc order 8", "lpc order 32", "lpc precision 15",
+                    "stereo mid_side")
+
+
+def check_rows_engine(name, corpus):
+    """The rows engine: zflac_tpu_torch.decode(engine="torch") on the
+    CPU == zflac_tpu.decode(engine="tpu") == the encoder's input, with
+    the stream MD5 verified by both (verify_md5 defaults to True); for
+    SAFE_LPC_STREAMS also with safe_lpc=True."""
+    import zflac_tpu
+    import zflac_tpu_torch
+    from conftest import expected_output
+
+    data, pcm, _sr, bps = corpus[name]
+    for safe_lpc in (False, True) if name in SAFE_LPC_STREAMS else (False,):
+        got = zflac_tpu_torch.decode(data, engine="torch", device="cpu",
+                                     safe_lpc=safe_lpc)
+        want = zflac_tpu.decode(data, engine="tpu", safe_lpc=safe_lpc)
+        assert got.stats["engine"] == "torch"
+        np.testing.assert_array_equal(got.interleaved, want.interleaved)
+        assert (got.channels, got.sample_rate, got.bits_per_sample) == (
+            want.channels, want.sample_rate, want.bits_per_sample)
+        np.testing.assert_array_equal(got.interleaved,
+                                      expected_output(pcm, bps))

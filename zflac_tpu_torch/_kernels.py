@@ -36,6 +36,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # Kernel name -> (C launcher, argument types before (device, stream)).
 _LAUNCHERS = {
     "rice16": ("zft_rice16_rows", (_P, _P, _P, _I, _I, _I)),
+    # The flat layout is rice16's kernel with Ssort = NG, counted apart.
+    "rice16_flat": ("zft_rice16_rows", (_P, _P, _P, _I, _I, _I)),
+    "lpc": ("zft_lpc", (_P, _I, _P, _I, _P, _P, _P, _I, _I)),
+    "lpc64": ("zft_lpc64", (_P, _I, _P, _I, _P, _P, _P, _I, _I)),
     "lpc2": ("zft_lpc2", (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I)),
     "lpc2w": ("zft_lpc2w", (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I)),
     "lpc2w33": ("zft_lpc2w33", (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I)),

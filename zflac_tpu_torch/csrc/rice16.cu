@@ -11,7 +11,9 @@
 // meta [NGp] (pos0:5 | k:6 | depth:5 | skip:5; k 62 = escape, 63 =
 // invalid group), group slot g = p * Ssort + s. Output: out
 // [(NGp / Ssort) * 8, Ssort] int32, residual j of slot g at row p*8 + j,
-// lane s.
+// lane s. With Ssort = NGp this is the flat [8, NG] layout of
+// rice16_unpack_inline (zflac_tpu/ops/rice16.py:160), which the port
+// launches as rice16_flat (ops/rice16.py rice16_unpack).
 //
 // What bounds it on the H100: bytes. Each slot reads W + 1 words and
 // writes 8 (68 B at W = 8), about 70 MB on the bench stream, so

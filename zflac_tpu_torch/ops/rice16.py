@@ -1,6 +1,8 @@
 """rice16: residuals out of the scan's per-group bit windows, as
 time-major rows (counterpart of zflac_tpu/ops/rice16.py
-rice16_unpack_rows_inline; kernel in csrc/rice16.cu).
+rice16_unpack_rows_inline; kernel in csrc/rice16.cu), and in the flat
+layout [G2, NG] (counterpart of rice16_unpack_inline, the same kernel
+with one p-row).
 
 Each group of G2 = 8 residuals carries W window words (W = 8, or 16
 for extreme Rice parameters) and one meta word packing pos0:5 | k:6 |
@@ -109,16 +111,40 @@ def rice16_unpack_rows(win, meta, *, Ssort: int):
     16, meta contiguous [NGp]."""
     if _kernels.route(win, meta) == "cpu":
         return rice16_unpack_rows_ref(win, meta, Ssort=Ssort)
+    return _launch("rice16", win, meta, Ssort)
+
+
+def rice16_unpack_ref(win, meta):
+    """Plain PyTorch version of the flat layout (counterpart of
+    zflac_tpu/ops/rice16.py rice16_unpack_inline): win [W, NG] int32,
+    meta [NG] int32 -> [G2, NG] int32, residual j of group g at [j, g].
+    It is the rows layout with one p-row, Ssort = NG."""
+    return rice16_unpack_rows_ref(win, meta, Ssort=win.shape[1])
+
+
+def rice16_unpack(win, meta):
+    """The flat layout on the device of its inputs: the rice16 kernel
+    with Ssort = NG (launch counted as rice16_flat) for CUDA tensors,
+    rice16_unpack_ref for CPU tensors. W must be 8 or 16: the scan
+    writes no other window width."""
+    if _kernels.route(win, meta) == "cpu":
+        return rice16_unpack_ref(win, meta)
+    return _launch("rice16_flat", win, meta, win.shape[1])
+
+
+def _launch(name, win, meta, Ssort):
+    """Check the arguments of the rice16 kernel and launch it on CUDA
+    tensors, counted under `name` (rice16 or rice16_flat)."""
     W, NGp = win.shape
     if W not in (8, 16):
-        raise ValueError(f"rice16: window of {W} words (kernel takes 8, 16)")
+        raise ValueError(f"{name}: window of {W} words (kernel takes 8, 16)")
     if Ssort <= 0 or NGp % Ssort:
-        raise ValueError(f"rice16: NGp {NGp} is not a multiple of Ssort "
+        raise ValueError(f"{name}: NGp {NGp} is not a multiple of Ssort "
                          f"{Ssort}")
     _kernels.check(win, "win", torch.int32)
     _kernels.check(meta, "meta", torch.int32, shape=(NGp,))
     out = torch.empty(((NGp // Ssort) * G2, Ssort), dtype=torch.int32,
                       device=win.device)
-    _kernels.launch("rice16", win.device, win.data_ptr(), meta.data_ptr(),
+    _kernels.launch(name, win.device, win.data_ptr(), meta.data_ptr(),
                     out.data_ptr(), W, NGp, Ssort)
     return out

@@ -97,18 +97,38 @@ class Pack2Geom:
         return buf.narrow(0, self.off[name], n)
 
 
-def chunk_to_torch(ck, device):
-    """Upload a Pack2Chunk's device buffer: returns (int32 tensor on
-    `device`, Pack2Geom). For a CUDA device the copy goes through
-    pinned memory, non-blocking on the current stream, so it orders
-    before the kernels launched after it."""
+def resolve_device(device) -> torch.device:
+    """`device` ("cuda", "cuda:N" or "cpu") as a torch.device with its
+    CUDA index filled in. A CUDA device with no card raises: nothing
+    moves to the CPU by itself."""
     device = torch.device(device)
-    host = torch.from_numpy(np.ascontiguousarray(ck.device_buf))
     if device.type == "cuda":
-        buf = host.pin_memory().to(device, non_blocking=True)
-    else:
-        buf = host.to(device, copy=True)
-    return buf, Pack2Geom.of(ck)
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} requested but CUDA is "
+                               "not available")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+def upload(host: np.ndarray, device):
+    """A copy of numpy array `host` on `device`. For a CUDA device the
+    copy goes through pinned memory, non-blocking on the current
+    stream, so it orders before the kernels launched after it."""
+    device = torch.device(device)
+    t = torch.from_numpy(np.ascontiguousarray(host))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device, copy=True)
+
+
+def chunk_to_torch(ck, device):
+    """Upload a Pack2Chunk's device buffer (one pinned, non-blocking
+    copy for a CUDA device): returns (int32 tensor on `device`,
+    Pack2Geom)."""
+    return upload(ck.device_buf, device), Pack2Geom.of(ck)
 
 
 def _patch_rows_layout(out, pidx, pval):
@@ -494,16 +514,7 @@ def decode_to_device(data: bytes, *, device, check_crc: bool = False,
     moves to the CPU by itself. The host scan runs in parallel
     (scan_workers=0 picks the core count, up to 8); uploads and
     kernels are queued on the current stream without waiting."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device} requested but CUDA is "
-                               "not available")
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-    elif device.type != "cpu":
-        raise ValueError(f"unsupported device {device}")
-
+    device = resolve_device(device)
     if not native_indexer.native_available():
         return None
     br = BitReader(data)
