@@ -5,10 +5,13 @@ GPU. Run it from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the CUDA kernels (zflac_tpu_torch/csrc) and the host scan
-library from the checkout's sources, then:
+library (zflac_tpu_torch/index/native) from the checkout's sources into
+build/zflac_tpu_torch/, then:
 
   1. prints the card (nvidia-smi name and power limit), torch and CUDA;
-  2. builds the kernels and the scan library, and times the build;
+  2. builds the kernels (one nvcc per source) and the scan library at
+     once, times the build and prints ptxas's registers and spills for
+     the ring kernels lpc2 and lpc2w;
   3. makes the streams: three full-width bench streams of correlated
      stereo, block 4096, 44.1 kHz, encoded in parallel processes and
      cached in .bench_cache/ (bench16: bench.py's 2**22 samples per
@@ -21,10 +24,14 @@ library from the checkout's sources, then:
      every stream's real pack2 chunk sections, lpc and lpc64 on the LPC
      classes of every stream's rows-engine plan (gathered as the rows
      engine gathers them, a safe_lpc plan of bench16 too), and all of
-     them on seeded synthetic inputs; then times each kernel and its
-     plain version at the bench shapes (CUDA events, median of 25
-     batches of back-to-back calls after warm-up; 5 for the plain lpc
-     and lpc64, a Python loop of 4096 steps);
+     them on seeded synthetic inputs (lpc2 and lpc2w over hist 8/16/32,
+     1 to 2048 lanes, B 8 to 4096, orders 0-32, every shift amount,
+     unaligned lane slices); then times each kernel and its plain
+     version at the bench shapes (CUDA events, median of 25 batches of
+     back-to-back calls after warm-up; 5 for the plain lpc and lpc64, a
+     Python loop of 4096 steps) beside its bound, and lpc2 and lpc2w
+     on each chunk decode_to_device reconstructs for bench16 and
+     bench24, in ns a step;
   5. drives both main paths, each with the launch counters reset just
      before and read just after (each kernel of the path must have
      launched): decode_to_device on each bench stream, and the rows
@@ -43,8 +50,11 @@ library from the checkout's sources, then:
 
 Any failure raises, and the exit code is then not 0. With no CUDA
 device it exits 1 before doing anything. The last lines are one JSON
-object with a record per kernel, the nvidia-smi line, and
-{"ok": true, "device": {...}}. Imports no JAX.
+object with a record per kernel (launches on the main paths, max
+|kernel - plain|, its time, the plain version's, its bound and what
+bounds it; no single PyTorch call computes any of these functions, so
+library_ms is null), the nvidia-smi line, and {"ok": true, "device":
+{...}}. Imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -52,27 +62,28 @@ from __future__ import annotations
 import json
 import multiprocessing
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 import zflac_tpu_torch
-from zflac_tpu import format as fmt
-from zflac_tpu.bitio import BitReader
-from zflac_tpu.encoder import EncoderConfig, encode
-from zflac_tpu.errors import InvalidChecksum
-from zflac_tpu.index import build_plan
-from zflac_tpu.index.native_indexer import (decode_cpu_native,
-                                            native_available, pack2_range)
-from zflac_tpu.oracle import parse_metadata
-from zflac_tpu.result import container_dtype
-from zflac_tpu.testing import correlated_stereo, make_corpus
 from zflac_tpu_torch import _kernels
+from zflac_tpu_torch import format as fmt
+from zflac_tpu_torch.bitio import BitReader
+from zflac_tpu_torch.encoder import EncoderConfig, encode
+from zflac_tpu_torch.errors import InvalidChecksum
+from zflac_tpu_torch.index import build_plan, native_indexer
+from zflac_tpu_torch.index.native_indexer import (decode_cpu_native,
+                                                  pack2_range)
+from zflac_tpu_torch.oracle import parse_metadata
+from zflac_tpu_torch.result import container_dtype
+from zflac_tpu_torch.testing import correlated_stereo, make_corpus
 from zflac_tpu_torch.ops.lpc import (KERNEL as LPC_ROWS_KERNEL,
                                      lpc_reconstruct, lpc_reconstruct_ref)
 from zflac_tpu_torch.ops.lpc2 import lpc2_reconstruct_ref
@@ -131,6 +142,28 @@ LPC_PLAIN = {"lpc2": lpc2_reconstruct_ref, "lpc2w": lpc2w_reconstruct_ref,
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def seconds(fn) -> float:
+    """Seconds fn() takes."""
+    t = time.perf_counter()
+    fn()
+    return time.perf_counter() - t
+
+
+def ptxas_summary() -> list:
+    """ptxas's registers, stack and spills for each instantiation of
+    the ring kernels (lpc2, lpc2w), from the build's report."""
+    out, name = [], None
+    with open(_kernels.PTXAS_REPORT) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                k = re.search(r"(lpc2w?_kernel)ILi(\d+)E", m.group(1))
+                name = f"{k.group(1)}<{k.group(2)}>" if k else None
+            elif name and ("Used" in line or "spill" in line):
+                out.append(f"ptxas {name}: {line.split(' : ')[-1].strip()}")
+    return out
 
 
 def gpu_line() -> str:
@@ -301,7 +334,7 @@ def hires_inputs(rng, n: int, B: int, hist: int, warm_bits: int):
     sums pass 2^32 by far; shifts from SHIFTS (10..15 on most lanes)."""
     order = rng.integers(1, hist + 1, n).astype(np.int32)
     shift = rng.integers(10, 16, n).astype(np.int32)
-    shift[:len(SHIFTS)] = SHIFTS
+    shift[:len(SHIFTS)] = SHIFTS[:n]
     cf = np.zeros((hist, n), np.int32)
     rows = rng.integers(-1024, 1025, (B, n)).astype(np.int64)
     lim = 1 << (warm_bits - 1)
@@ -309,18 +342,81 @@ def hires_inputs(rng, n: int, B: int, hist: int, warm_bits: int):
         o = order[i]
         cap = max(1, (1 << int(min(max(shift[i], 0), 15))) // int(o))
         cf[:o, i] = rng.integers(-cap, cap + 1, o)
-        rows[:o, i] = rng.integers(-lim, lim, o)
+        rows[:o, i] = rng.integers(-lim, lim, o)[:B]
     return rows, cf, shift, order
+
+
+# Lane counts, block sizes and the column offset of the lane slices in
+# ring_checks: n 1 and 31 leave a warp partly idle, 33 adds a second
+# block of one lane, 2048 is bench16's class; B 8 is one short group of
+# steps, 128 one stage of the ring, 200 a stage and a rest of two long
+# groups and a short one, 4096 the bench block.
+RING_N = (1, 31, 33, 256, 2048)
+RING_B = (8, 128, 200, 4096)
+RING_COL = 3
+
+
+def ring_inputs(rng, name: str, n: int, B: int, hist: int):
+    """Seeded inputs for lpc2 / lpc2w over every order 0..32 (warm-ups
+    longer than the history too) and every shift of SHIFTS: lpc2's
+    15-bit coefficients wrap int32; lpc2w takes hires_inputs' bounded
+    30-bit signals whose 64-bit sums pass 2^32, and past 32 lanes gives
+    the last lane 21-bit coefficients, so the last warp runs lpc2w's
+    int64 step and the others its float64 step."""
+    if name == "lpc2w":
+        rows, cf, shift, order = hires_inputs(rng, n, B, hist, 30)
+        if n > 32:  # the last warp's last lane: 21-bit coefficients
+            cf[:, -1] = rng.integers(-2**20, 2**20, hist)
+    else:
+        rows = rng.integers(-(1 << 15), 1 << 15, (B, n))
+        cf = rng.integers(-(1 << 14), 1 << 14, (hist, n))
+        shift = rng.integers(0, 16, n)
+        shift[:len(SHIFTS)] = SHIFTS[:n]
+    order = rng.integers(0, 33, n)
+    order[:33] = np.arange(33)[:n]
+    cf = cf * (np.arange(hist)[:, None] < order[None, :])
+    return (rows.astype(np.int32), cf.astype(np.int32),
+            shift.astype(np.int32), order.astype(np.int32))
+
+
+def ring_checks(rng, t, diff: Diff) -> None:
+    """lpc2 and lpc2w, the shared-memory ring kernels, bit for bit
+    against their plain versions at hist 8/16/32, every n of RING_N and
+    B of RING_B, with rows and coefficients as lane slices of wider
+    arrays: starting at column RING_COL with an odd row stride, so
+    neither base address nor row stride is 16-byte aligned (the ring's
+    4-byte copies), and starting at column 0 with a stride of whole
+    16-byte units (its 16-byte copies, in every block whose 32 lanes
+    exist)."""
+    for name in ("lpc2", "lpc2w"):
+        for hist in (8, 16, 32):
+            for n in RING_N:
+                for B in RING_B:
+                    for col, right in ((RING_COL, 4 + n % 2),
+                                       (0, 4 + (-n) % 4)):
+                        rows, cf, shift, order = ring_inputs(
+                            rng, name, n, B, hist)
+                        pad = lambda a: np.pad(  # noqa: E731
+                            a, ((0, 0), (col, right)))
+                        sl = slice(col, col + n)
+                        args = (t(pad(rows))[:, sl], t(pad(cf))[:, sl],
+                                t(shift), t(order))
+                        aligned = (args[0].data_ptr() % 16 == 0
+                                   and args[0].stride(0) % 4 == 0)
+                        assert aligned == (col == 0)
+                        diff.check(name, f"synthetic hist={hist} n={n} "
+                                   f"B={B} column {col}",
+                                   rt.LPC_KERNELS[name](*args),
+                                   LPC_PLAIN[name](*args))
 
 
 def synthetic_checks(dev, diff: Diff) -> None:
     """Seeded inputs beyond what the streams reach: rice16 and
     rice16_flat with W 8 and 16 over random windows with escape,
-    invalid and skip groups; lpc2 with 15-bit coefficients (int32
-    wraparound) at hist 8/16/32 and padded block sizes; lpc2w, lpc2w33,
-    lpc and lpc64 with orders up to the history and the whole shift
-    range; packtail over all four stereo modes, wasted bits and both
-    containers."""
+    invalid and skip groups; lpc2 and lpc2w as ring_checks says;
+    lpc2w33, lpc and lpc64 with orders up to the history and the whole
+    shift range; packtail over all four stereo modes, wasted bits and
+    both containers."""
     rng = np.random.default_rng(2024)
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     for W, Ssort, GP1 in ((8, 1024, 6), (16, 384, 5)):
@@ -339,26 +435,14 @@ def synthetic_checks(dev, diff: Diff) -> None:
                    rice16_unpack_rows_ref(w_t, m_t, Ssort=Ssort))
         diff.check("rice16_flat", f"synthetic W={W}", rice16_unpack(w_t, m_t),
                    rice16_unpack_ref(w_t, m_t))
-    for hist, B in ((8, 640), (16, 1152), (32, 256)):
-        n = 256
-        order = rng.integers(1, hist + 1, n).astype(np.int32)
-        cf = np.zeros((hist, n), np.int32)
-        for i in range(n):
-            cf[:order[i], i] = rng.integers(-(1 << 14), 1 << 14, order[i])
-        args = (t(rng.integers(-(1 << 15), 1 << 15, (B, n)).astype(np.int32)),
-                t(cf), t(rng.integers(0, 16, n).astype(np.int32)), t(order))
-        diff.check("lpc2", f"synthetic hist={hist} B={B}",
-                   rt.LPC_KERNELS["lpc2"](*args), lpc2_reconstruct_ref(*args))
-    for name, warm_bits, dtype in (("lpc2w", 30, np.int32),
-                                   ("lpc2w33", 33, np.int64)):
-        for hist in (8, 16, 32):
-            for B in (640, 1152):
-                rows, cf, shift, order = hires_inputs(rng, 256, B, hist,
-                                                      warm_bits)
-                args = (t(rows.astype(dtype)), t(cf), t(shift), t(order))
-                diff.check(name, f"synthetic hist={hist} B={B}",
-                           rt.LPC_KERNELS[name](*args),
-                           LPC_PLAIN[name](*args))
+    ring_checks(rng, t, diff)
+    for hist in (8, 16, 32):
+        for B in (640, 1152):
+            rows, cf, shift, order = hires_inputs(rng, 256, B, hist, 33)
+            args = (t(rows), t(cf), t(shift), t(order))
+            diff.check("lpc2w33", f"synthetic hist={hist} B={B}",
+                       rt.LPC_KERNELS["lpc2w33"](*args),
+                       LPC_PLAIN["lpc2w33"](*args))
     for dtype, warm_bits in ((np.int32, 16), (np.int64, 33)):
         for B in (256, 640, 4608):
             rows, cf, shift, order = hires_inputs(rng, 256, B, 32,
@@ -384,6 +468,63 @@ def synthetic_checks(dev, diff: Diff) -> None:
         diff.check("packtail", f"synthetic container {cb}",
                    packtail(*args, Fp=Fp, container_bits=cb),
                    packtail_ref(*args, Fp=Fp, container_bits=cb))
+
+
+# The card's peaks for the bound (one H100 SXM at 700 W, from its
+# published data sheet): HBM bytes per second, and the float32 rate
+# outside the tensor cores, which the table's nearest to the 32- and
+# 64-bit integer work of these kernels and, as an upper limit on their
+# rate, keeps the bound a lower limit on their time.
+HBM_BYTES_S = 3.35e12
+OPS_S = 67e12
+# Integer operations per output element of the kernels that are not a
+# recurrence: rice16's bit extraction (shift, mask, leading zeros, the
+# zigzag) and packtail's shift, decorrelation and pack.
+OPS_PER_OUT = {"rice16": 8, "rice16_flat": 8, "packtail": 8}
+
+
+def bound(name: str, inputs, out) -> tuple:
+    """(the least time in ms the card could take for the call, "bytes"
+    or "operations"): each tensor input read once and the output
+    written once at HBM_BYTES_S, against the call's operations at
+    OPS_S. A recurrence over rows [B, n] with hist taps does a multiply
+    and an add a tap, a shift and an add a step; the others
+    OPS_PER_OUT a output element."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs
+                 if isinstance(t, torch.Tensor))
+    nbytes += out.numel() * out.element_size()
+    if name in OPS_PER_OUT:
+        ops = OPS_PER_OUT[name] * out.numel()
+    else:
+        B, n = inputs[0].shape
+        ops = B * n * (2 * inputs[1].shape[0] + 2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / OPS_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def path_times(name: str, chunks, line: str) -> None:
+    """The LPC kernel of a bench stream's decode_to_device path timed on
+    each LPC class of each chunk that path reconstructs (the parallel
+    scan's ranges), in ns a step, with the sum per call against its
+    bound."""
+    total = bnd = 0.0
+    parts = []
+    for i, d in enumerate(chunks):
+        for cname, args in d["lpc"].items():
+            ms = cuda_ms(lambda a=args, k=d["lpc_name"]:
+                         rt.LPC_KERNELS[k](*a))
+            b_ms, _ = bound(d["lpc_name"], args,
+                            rt.LPC_KERNELS[d["lpc_name"]](*args))
+            total += ms
+            bnd += b_ms
+            B, n = args[0].shape
+            parts.append(f"chunk {i} {cname} [{B}, {n}] {ms:.4f} ms "
+                         f"= {ms / B * 1e6:.1f} ns a step")
+    say("kernels", f"{chunks[0]['lpc_name']} on {name}'s decode_to_device "
+        f"chunks: " + "; ".join(parts) + f"; {len(parts)} launches, "
+        f"{total:.4f} ms a call against a bound of {bnd:.4f} ms (median "
+        f"of {REPS} batches each, CUDA events) on {line}")
 
 
 def decode_check(what: str, data: bytes, want: np.ndarray,
@@ -561,16 +702,23 @@ def main() -> None:
             max_workers=len(BENCH),
             mp_context=multiprocessing.get_context("spawn")) as pool:
         pending = {name: pool.submit(bench_stream, name) for name in BENCH}
-        t0 = time.perf_counter()
-        _kernels.build(force=True)
+        # The CUDA kernels (one nvcc per source) and the host scan
+        # library build at the same time, from the checkout's sources.
+        with ThreadPoolExecutor(2) as ex:
+            k_s = ex.submit(seconds, lambda: _kernels.build(force=True))
+            n_s = ex.submit(seconds,
+                            lambda: native_indexer.build(force=True))
+            k_s, n_s = k_s.result(), n_s.result()
         _kernels.library()
-        t1 = time.perf_counter()
-        if not native_available():
-            raise RuntimeError("the native scan library did not build")
-        t2 = time.perf_counter()
-        say("build", f"CUDA kernels {t1 - t0:.1f} s (nvcc "
-            f"{_kernels.find_nvcc()}, {' '.join(_kernels.NVCC_FLAGS)}); "
-            f"host scan library {t2 - t1:.1f} s")
+        if not native_indexer.native_available():
+            raise RuntimeError("the native scan library did not load")
+        say("build", f"CUDA kernels {k_s:.1f} s (nvcc "
+            f"{_kernels.find_nvcc()}, {' '.join(_kernels.NVCC_FLAGS)}, "
+            f"one process per source), host scan library {n_s:.1f} s "
+            f"(g++ {' '.join(native_indexer.CXX_FLAGS)} into "
+            f"{os.path.relpath(native_indexer.BUILD_DIR)}), at once")
+        for line_ in ptxas_summary():
+            say("build", line_)
         corpus = {name: (data, expected_pcm(pcm, bps))
                   for name, (data, pcm, _sr, bps) in make_corpus().items()}
         benches = {name: (fut.result(),
@@ -584,20 +732,18 @@ def main() -> None:
 
     # ---- kernels against their plain versions, on the card ----
     diff = Diff()
-    ins, n_chunks = {}, {}
+    ins, path_ins = {}, {}
     for name, (data, _) in benches.items():
         ins[name] = kernel_checks(dev, diff, f"{name} chunk",
                                   first_chunk(data))
-        # The chunks decode_to_device itself scans for the stream: one
-        # per anchor-split range of the parallel scan, each of the
-        # stream's frames at most.
+        # The chunks decode_to_device itself reconstructs: one per
+        # anchor-split range of the parallel scan, in their union
+        # geometry.
         br = BitReader(data)
-        info = parse_metadata(br)
-        main_chunks = rt.scan_pack2_chunks(
-            data, br.pos // 8, info, 1024, ins[name]["geom"].Bp, False)
-        for i, (_, ck) in enumerate(main_chunks):
-            kernel_checks(dev, diff, f"{name} range chunk {i}", ck)
-        n_chunks[name] = len(main_chunks)
+        cks = rt.stream_chunks(data, parse_metadata(br), br.pos // 8)
+        path_ins[name] = [kernel_checks(dev, diff,
+                                        f"{name} path chunk {i}", ck)
+                          for i, ck in enumerate(cks)]
     for name, (data, _) in corpus.items():
         kernel_checks(dev, diff, name, first_chunk(data))
     rows_ins = {name: rows_lpc_checks(dev, diff, f"{name} rows plan", data)
@@ -613,7 +759,9 @@ def main() -> None:
         say("kernels", f"{name} whole-stream chunk: Fp {g.Fp}, Bp {g.Bp}, "
             f"Ssort {g.Ssort}, W {g.W}, NGp {g.NGp}, wide {g.wide}, "
             f"classes {g.classes}, LPC kernel {d['lpc_name']}; "
-            f"{n_chunks[name]} parallel-scan chunks")
+            f"decode_to_device reconstructs {len(path_ins[name])} "
+            f"parallel-scan chunks of classes "
+            f"{path_ins[name][0]['geom'].classes}")
     for name, cls in rows_ins.items():
         say("kernels", f"{name} rows-engine plan: LPC classes " + ", ".join(
             f"{c} rows {list(a[0].shape)} {a[0].dtype}"
@@ -651,11 +799,15 @@ def main() -> None:
     for k in ("lpc", "lpc64"):
         timed[k] = (lambda a=lpc_args[k]: lpc_reconstruct(*a),
                     lambda a=lpc_args[k]: lpc_reconstruct_ref(*a))
-    times = {}
+    # The tensor inputs of each timed call, for its bound.
+    timed_in = dict(lpc_args, rice16=(win, meta), rice16_flat=(win, meta),
+                    packtail=tail)
+    times, bounds = {}, {}
     for name in KERNELS:
         kern, plain = timed[name]
         plain_reps = PLAIN_LPC_REPS if name in ("lpc", "lpc64") else REPS
         times[name] = (cuda_ms(kern), cuda_ms(plain, plain_reps))
+        bounds[name] = bound(name, timed_in[name], kern())
         where = timed_on.get(name, "bench16")
         shape = ""
         if name in lpc_args:
@@ -666,7 +818,10 @@ def main() -> None:
         say("kernels", f"{name} at {where} shapes{shape}: kernel "
             f"{times[name][0]:.4f} ms (median of {REPS} batches), plain "
             f"PyTorch {times[name][1]:.4f} ms (median of {plain_reps} "
-            f"batches); per call, CUDA events, on {line}")
+            f"batches); per call, CUDA events; bound "
+            f"{bounds[name][0]:.4f} ms by {bounds[name][1]}; on {line}")
+    for name in ("bench16", "bench24"):
+        path_times(name, path_ins[name], line)
 
     # ---- the main path, counted: each bench stream's own run ----
     launches = {}
@@ -743,7 +898,8 @@ def main() -> None:
     records = [{"name": k, "route": "cuda", "source": src,
                 "replaces": rep, "launches": int(launches.get(k, 0)),
                 "max_abs_err": diff.err[k], "ms": times[k][0],
-                "plain_ms": times[k][1]}
+                "plain_ms": times[k][1], "bound_ms": bounds[k][0],
+                "bound_by": bounds[k][1], "library_ms": None}
                for k, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": records}))
     print(line)

@@ -78,8 +78,9 @@ def test_union_rescan_path(corpus):
 
 def test_union_rescan_must_land_where_the_scan_did(monkeypatch, corpus):
     """A union re-scan that lands elsewhere than the natural scan of
-    the same range declines the fast path (returns None)."""
-    from zflac_tpu.index import native_indexer
+    the same range declines the fast path (returns None). The port
+    scans with its own copy of the native indexer."""
+    from zflac_tpu_torch.index import native_indexer
 
     real = native_indexer.pack2_range
 

@@ -19,6 +19,7 @@ from zflac_tpu.index.native_indexer import native_available  # noqa: E402
 from zflac_tpu.testing import make_corpus  # noqa: E402
 
 from torch_slice import (  # noqa: E402
+    ALL_STREAMS,
     BLOCKING_STREAMS,
     CHANNEL_STREAMS,
     FORMAT_STREAMS,
@@ -37,6 +38,7 @@ def test_stream_groups_cover_the_slice():
     takes every stream the JAX package's decode_to_device takes."""
     groups = (SUBFRAME_STREAMS + FORMAT_STREAMS + BLOCKING_STREAMS +
               HIRES_STREAMS + CHANNEL_STREAMS)
+    assert groups == ALL_STREAMS
     assert len(set(groups)) == len(groups) == 61
     assert set(groups) == set(make_corpus())
 

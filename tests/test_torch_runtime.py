@@ -3,8 +3,9 @@ piece by piece, on the CPU: the stages between the kernels equal the
 JAX core truncated at the same point, wide chunks equal the JAX wide
 path, the buffer upload round-trips, the stop cut and corruption behave
 as in the JAX package, the stream MD5 check equals the JAX one, the
-kernel wrappers never fall back from a CUDA request to the CPU, and the
-port never imports JAX."""
+kernel wrappers never fall back from a CUDA request to the CPU, the
+entry points default to the card, and the port never imports JAX or the
+JAX package."""
 
 import os
 import subprocess
@@ -21,7 +22,6 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from zflac_tpu.errors import InvalidChecksum  # noqa: E402
 from zflac_tpu.index.native_indexer import (  # noqa: E402
     native_available,
     pack2_range,
@@ -29,6 +29,7 @@ from zflac_tpu.index.native_indexer import (  # noqa: E402
 
 import zflac_tpu_torch  # noqa: E402
 from zflac_tpu_torch import _kernels  # noqa: E402
+from zflac_tpu_torch.errors import InvalidChecksum  # noqa: E402
 from zflac_tpu_torch.runtime import device as rt  # noqa: E402
 
 pytestmark = pytest.mark.skipif(
@@ -57,7 +58,8 @@ def test_apply_stop_cut():
 
 
 def test_corruption_raises(corpus):
-    """A flipped residual bit decodes but fails the stream MD5."""
+    """A flipped residual bit decodes but fails the stream MD5, with the
+    port's own InvalidChecksum."""
     bad = bytearray(corpus["lpc order 8"][0])
     bad[-200] ^= 0x10
     dd = zflac_tpu_torch.decode_to_device(bytes(bad), device="cpu")
@@ -163,16 +165,22 @@ def test_chunk_to_torch_round_trip(corpus):
 
 def test_port_imports_no_jax():
     """In a fresh interpreter the port and chip_smoke.py load without
-    JAX (the card's machine has none)."""
+    JAX (the card's machine has none) and without any module of the
+    JAX package: the port keeps its own copies."""
     code = ("import sys\n"
             "import zflac_tpu_torch\n"
             "from zflac_tpu_torch.runtime import device, reconstruct, "
             "wide, decode, seek, pack, scatter\n"
             "from zflac_tpu_torch.ops import rice16, lpc2, lpc2w, packtail, "
             "lpc\n"
-            "from zflac_tpu_torch import _kernels\n"
+            "from zflac_tpu_torch import _kernels, format, bitio, errors, "
+            "crc, result, plan, metadata, oracle, encoder, testing\n"
+            "from zflac_tpu_torch.index import native_indexer, py_indexer\n"
+            "from zflac_tpu_torch.utils import log\n"
+            "from zflac_tpu_torch.tools import kernel_sass\n"
             "import chip_smoke\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] == 'jax']\n"
+            "bad = [m for m in sys.modules\n"
+            "       if m.split('.')[0] in ('jax', 'zflac_tpu')]\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
@@ -254,29 +262,57 @@ def test_cuda_request_without_a_card_raises(corpus):
 
 
 def test_engine_guards(corpus):
-    """An unknown engine raises ValueError (no silent default path); the
-    torch engine, and each rows-engine entry point, needs an explicit
-    device; "auto" takes the native engine when it is available."""
+    """An unknown engine raises ValueError (no silent default path;
+    the JAX package's "auto" is not an engine of the port); decode's
+    default engine is the torch engine, and it and each rows-engine
+    entry point runs on the card when no device is given, so here, with
+    no card, it raises the no-card RuntimeError and never runs on the
+    CPU by itself; only engine="native" runs the host engine."""
     data = corpus["lpc order 8"][0]
-    with pytest.raises(ValueError, match="unknown engine"):
-        zflac_tpu_torch.decode(data, engine="tpu", device="cpu")
-    with pytest.raises(ValueError, match="unknown engine"):
-        zflac_tpu_torch.decode(data, engine="cuda", device="cpu")
+    for engine in ("tpu", "cuda", "auto"):
+        with pytest.raises(ValueError, match="unknown engine"):
+            zflac_tpu_torch.decode(data, engine=engine, device="cpu")
     for call in (
+            lambda: zflac_tpu_torch.decode(data),
             lambda: zflac_tpu_torch.decode(data, engine="torch"),
             lambda: zflac_tpu_torch.decode(data, safe_lpc=True),
             lambda: zflac_tpu_torch.decode_pipelined(data),
             lambda: list(zflac_tpu_torch.stream_decode(data)),
             lambda: zflac_tpu_torch.decode_range(data, 0, 10),
             lambda: zflac_tpu_torch.decode_tolerant(data)):
-        with pytest.raises(ValueError, match="explicit device"):
-            call()
-    assert zflac_tpu_torch.decode(data).stats["engine"] == "native"
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
+    assert zflac_tpu_torch.decode(
+        data, device="cpu").stats["engine"] == "torch"
     r = zflac_tpu_torch.decode(data, engine="native")
+    assert r.stats["engine"] == "native"
     np.testing.assert_array_equal(
         r.interleaved,
         zflac_tpu_torch.decode(data, engine="torch",
                                device="cpu").interleaved)
+
+
+def test_entry_points_default_to_the_card(corpus):
+    """Every public entry point takes device="cuda" when none is given,
+    and decode the torch engine; decode_to_device and decode called
+    with neither raise here, with no card, instead of running on the
+    CPU."""
+    import inspect
+
+    from zflac_tpu_torch.runtime import decode as rd
+    from zflac_tpu_torch.runtime import seek as rs
+
+    for fn in (rt.decode_to_device, rd.decode, rd.decode_pipelined,
+               rd.stream_decode, rs.decode_range, rs.decode_tolerant):
+        assert inspect.signature(fn).parameters["device"].default == \
+            "cuda", fn.__name__
+    assert inspect.signature(rd.decode).parameters["engine"].default == \
+        "torch"
+    if not torch.cuda.is_available():
+        for fn in (zflac_tpu_torch.decode_to_device, zflac_tpu_torch.decode):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                fn(corpus["lpc order 8"][0])
 
 
 def test_entry_points_take_a_path(corpus, tmp_path):

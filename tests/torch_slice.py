@@ -43,6 +43,9 @@ CHANNEL_STREAMS = (
     "channels 1", "channels 3", "channels 4", "channels 5", "channels 6",
     "channels 7", "channels 8", "surround 8ch 24bit", "wasted bits 12of16",
 )
+# The whole corpus, for the tests that take every stream in one file.
+ALL_STREAMS = (SUBFRAME_STREAMS + FORMAT_STREAMS + BLOCKING_STREAMS +
+               HIRES_STREAMS + CHANNEL_STREAMS)
 
 
 def assert_same(dd, ref, verify_md5=True):

@@ -2,26 +2,28 @@
 CUDA kernels for an NVIDIA H100 (sm_90a).
 
 Two engines, as in the JAX package:
-- `decode_to_device(data, device=...)`, the pack2 path, turns FLAC
-  bytes into PCM in device memory for every stream zflac_tpu's
-  decode_to_device takes (1-8 channels, 8-32 bits, 33-bit side
-  channels): the host C++ scan shared with zflac_tpu writes one int32
-  plan buffer per chunk, and the device reconstructs it through the
-  rice16, lpc2, lpc2w, lpc2w33 and packtail kernels (csrc/).
-- the rows engine, `decode(data, engine="torch", device=...)` and its
-  `decode_pipelined`, `stream_decode`, `decode_range` and
-  `decode_tolerant`: the shared host indexer builds a dense plan, the
-  device reconstructs it through the lpc (int32) and lpc64 kernels,
-  and the PCM is assembled on the host into a DecodedFLAC, MD5 checked.
-  `engine="native"` is the shared host C++ engine; "auto" picks it when
-  it is available.
+- `decode_to_device(data)`, the pack2 path, turns FLAC bytes into PCM
+  in device memory for every stream zflac_tpu's decode_to_device takes
+  (1-8 channels, 8-32 bits, 33-bit side channels): the host C++ scan
+  (index/) writes one int32 plan buffer per chunk, and the device
+  reconstructs it through the rice16, lpc2, lpc2w, lpc2w33 and
+  packtail kernels (csrc/).
+- the rows engine, `decode(data)` (engine="torch", the default) and
+  its `decode_pipelined`, `stream_decode`, `decode_range` and
+  `decode_tolerant`: the host indexer builds a dense plan, the device
+  reconstructs it through the lpc (int32) and lpc64 kernels, and the
+  PCM is assembled on the host into a DecodedFLAC, MD5 checked.
+  `engine="native"` is the host C++ engine, taken only when asked for.
 
+Every entry point runs on the card, device="cuda", unless the caller
+passes device="cpu" (or "cuda:N"); with no card a CUDA request raises.
 On CPU tensors each kernel wrapper runs its plain PyTorch version,
 which the tests hold bit-exact to the JAX package.
 
-This package imports torch and never jax; of zflac_tpu it uses only
-the jax-free host modules (format, errors, result, bitio, oracle,
-index, plan, metadata, runtime.seek's _slice_plan, encoder, testing).
+This package imports torch, and neither jax nor zflac_tpu: it keeps
+its own copies of the JAX package's host modules (format, bitio,
+errors, crc, result, plan, metadata, oracle, index with the C++ scan
+sources, utils.log, and encoder and testing for chip_smoke.py).
 """
 
 from .runtime.device import DeviceDecoded, decode_to_device  # noqa: F401
@@ -39,20 +41,21 @@ def _read(data) -> bytes:
 
 def decode(data, **kwargs):
     """Decode a FLAC stream (bytes or path) to PCM
-    (runtime/decode.py; engine="torch" needs device=...)."""
+    (runtime/decode.py; the default engine, "torch", runs on
+    device="cuda" unless told otherwise)."""
     from .runtime.decode import decode as _decode
     return _decode(_read(data), **kwargs)
 
 
 def decode_range(data, start_sample, num_samples, **kwargs):
     """Partial decode of [start_sample, start_sample + num_samples) on
-    device=... (runtime/seek.py)."""
+    the device (runtime/seek.py)."""
     from .runtime.seek import decode_range as _dr
     return _dr(_read(data), start_sample, num_samples, **kwargs)
 
 
 def decode_tolerant(data, **kwargs):
-    """Error-recovering decode on device=...: resynchronize past corrupt
+    """Error-recovering decode on the device: resynchronize past corrupt
     regions; gaps become silence at exact sample positions
     (runtime/seek.py)."""
     from .runtime.seek import decode_tolerant as _dt
@@ -60,14 +63,14 @@ def decode_tolerant(data, **kwargs):
 
 
 def decode_pipelined(data, **kwargs):
-    """Chunked decode on device=..., overlapping host indexing with
+    """Chunked decode on the device, overlapping host indexing with
     device work (runtime/decode.py)."""
     from .runtime.decode import decode_pipelined as _dp
     return _dp(_read(data), **kwargs)
 
 
 def stream_decode(data, **kwargs):
-    """Generator of PCM chunks as they decode on device=...
+    """Generator of PCM chunks as they decode on the device
     (runtime/decode.py)."""
     from .runtime.decode import stream_decode as _sd
     return _sd(_read(data), **kwargs)

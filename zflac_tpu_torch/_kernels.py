@@ -3,9 +3,10 @@
 The sources have a plain C interface (one `extern "C"` launcher per
 kernel, no PyTorch headers), so nvcc builds them in seconds into one
 shared library that ctypes loads, the way the host scan's
-libzflac_index.so is loaded (zflac_tpu/index/native_indexer.py). The
-library is built at first use into build/zflac_tpu_torch/ under the
-checkout and rebuilt when any source is newer than it.
+libzflac_index.so is loaded (index/native_indexer.py). The library is
+built at first use into build/zflac_tpu_torch/ under the checkout, one
+nvcc process per source started together and one link, and rebuilt
+when any source is newer than it.
 
 Every launch goes through `launch`: it passes PyTorch's current stream,
 raises on the CUDA status the launcher returns, and counts the launch
@@ -28,9 +29,10 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "zflac_tpu_torch")
 _SO = os.path.join(BUILD_DIR, "libzflac_tpu_torch.so")
+PTXAS_REPORT = os.path.join(BUILD_DIR, "ptxas.txt")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # Kernel name -> (C launcher, argument types before (device, stream)).
@@ -70,23 +72,45 @@ def find_nvcc() -> str:
         "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
+def _run(cmds) -> list:
+    """Run the commands at once; returns their stderr (ptxas -v writes
+    its register and spill report there); raises with the stderr of the
+    first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate(timeout=600) for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{err}")
+    return [err for _, err in outs]
+
+
 def build(force: bool = False) -> str:
     """Compile csrc/*.cu into the shared library unless it is newer
-    than every source. Returns the library path; raises with nvcc's
-    stderr when the build fails."""
+    than every source and header: one nvcc per source, all started
+    together, then one link. ptxas's register, shared-memory and spill
+    report for every kernel goes to PTXAS_REPORT. Returns the library
+    path; raises with nvcc's stderr when the build fails."""
     srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    deps = srcs + glob.glob(os.path.join(CSRC, "*.cuh"))
     if not force and os.path.exists(_SO) and \
-            os.path.getmtime(_SO) >= max(os.path.getmtime(s) for s in srcs):
+            os.path.getmtime(_SO) >= max(map(os.path.getmtime, deps)):
         return _SO
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}")
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s) + f".{tag}.o")
+            for s in srcs]
+    report = _run([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o, s]
+                   for s, o in zip(srcs, objs)])
+    tmp = f"{_SO}.{tag}"
+    _run([[nvcc, "-shared", "-o", tmp, *objs]])
+    for o in objs:
+        os.remove(o)
+    with open(PTXAS_REPORT, "w") as f:
+        f.write("".join(report))
     os.replace(tmp, _SO)
     return _SO
 

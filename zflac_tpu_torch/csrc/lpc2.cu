@@ -5,9 +5,10 @@
 // lpc16 and lpc32 classes of <= 16-bit streams (hist 8, 16, 32).
 //
 // Input: rows [B, n] (warm-up samples at t < order, residuals after;
-// any row stride), cfwd [hist, n] with row r = c_{r+1} (zero for
-// r >= order; any row stride), shift [n], order [n]. Output: out [B, n]
-// int32, the reconstructed signal.
+// any row stride, any base address), cfwd [hist, n] with row r =
+// c_{r+1} (zero for r >= order; any row stride), shift [n], order [n].
+// Output: out [B, n] int32, the reconstructed signal. B is a multiple
+// of 8, n anything.
 //
 // The same transposed direct form as the TPU kernel: a pipeline P[hist]
 // where P[r] holds the partial prediction for time t+1+r from every
@@ -20,68 +21,91 @@
 // its amount kept in [0, 31] (31 for any amount XLA would treat as
 // >= 32, which gives the sign fill there too).
 //
-// What bounds it on the H100: the serial chain, not bytes. Each lane
-// is one thread that walks all B time steps; the bench stream has only
-// n = 2048 lanes (64 warps for 132 SMs) and B = 4096 dependent steps.
-// Design against memory latency on that chain: the P and c vectors
-// live in registers (HIST is a template argument, so every index is
-// static), and residuals are loaded in unrolled groups of 8, the next
-// group issued before the current one is consumed, so the loads sit
-// off the dependency chain (the TPU kernel's unroll=8). Loads of
-// rows[t, s] and stores of out[t, s] coalesce across s. Splitting
-// lanes finer or keeping more work in flight is later work.
+// What bounds it on the H100: the serial chain of each lane and the
+// instructions one warp issues for it, not bytes. The bench stream's
+// lpc8 class has 2048 lanes (64 warps for 132 SMs) and B = 4096
+// dependent steps, and each of decode_to_device's parallel-scan chunks
+// a few hundred lanes over the same 4096 steps, so each SM runs one
+// warp and nothing hides that warp's stalls. Reading each input byte
+// and writing each output byte once takes 0.020 ms at 3.35 TB/s.
+// The earlier kernel issued its loads only 8 steps ahead and spent 82-86 ns
+// a step waiting for them.
+//
+// The design (lpc_ring.cuh): one warp per block and one lane per
+// thread; the block copies its lanes' residuals into a ring of 3
+// shared-memory stages of 128 steps with cp.async (16 bytes a copy
+// where the block's base and row stride allow it, else 4), 256 steps
+// ahead of the chain, and each thread reads its own back 32 steps
+// ahead into registers and stores each output as it is made (posted,
+// coalesced across the warp's 32 lanes). P and c live in registers
+// (HIST is a template argument, so every index is static). The time
+// loop is split at the warm-up: only a stage in which some lane of the
+// warp is still below its order runs the select that passes warm-ups
+// through. And the chain is cut to two instructions:
+// P[0]' = P[1] + c0 * (res + pred) is computed as
+// (P[1] + c0 * res) + c0 * pred (equal mod 2^32), whose first sum is
+// ready before pred is.
+//
+// In the SASS (sm_90a; python3 -m zflac_tpu_torch.tools.kernel_sass)
+// one step of the
+// bare chain is SHF.R.S32.HI (pred = P[0] >> sh) -> IMAD
+// (P[0]' = c0 * pred + x0), a SEL between them in a warm-up stage.
+// Around it a step at hist 8 issues about 19 instructions: 9 IMAD (the
+// taps and x0), 2 IADD3, the LDS, the STG, an IMAD.WIDE that moves the
+// output pointer, and its share of the copies. A lone warp issues
+// these at well under one a cycle, so at hist 8 the instruction count,
+// not the two-instruction chain, sets the time of a step; each further
+// tap adds an IMAD (PERF.md §6 has the times).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lpc_ring.cuh"
 
 namespace {
 
-constexpr int kUnroll = 8;
-
 template <int HIST>
-__global__ void lpc2_kernel(const int32_t* __restrict__ rows, int ld_rows,
-                            const int32_t* __restrict__ cfwd, int ld_cf,
-                            const int32_t* __restrict__ shift,
-                            const int32_t* __restrict__ order,
-                            int32_t* __restrict__ out, int b, int n) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n) return;
+struct Lpc2Step {
   uint32_t c[HIST];
   uint32_t P[HIST];
+  int sh;
+  int ord;
+
+  // One step: the output at time t from its residual (or warm-up).
+  template <bool WARM>
+  __device__ __forceinline__ int32_t run(int32_t res, int t) {
+    // P[0]' = P[1] + c0 * (res + pred) = (P[1] + c0 * res) + c0 * pred
+    // (mod 2^32): the first sum is ready before pred, so the chain is
+    // the shift and one multiply-add.
+    const uint32_t x0 = P[1] + (uint32_t)res * c[0];
+    uint32_t pred = (uint32_t)(((int32_t)P[0]) >> sh);
+    if (WARM && t < ord) pred = 0u;
+    const uint32_t v = (uint32_t)res + pred;
+    P[0] = x0 + pred * c[0];
+#pragma unroll
+    for (int r = 1; r < HIST - 1; ++r) P[r] = P[r + 1] + v * c[r];
+    P[HIST - 1] = v * c[HIST - 1];
+    return (int32_t)v;
+  }
+};
+
+template <int HIST>
+__global__ void __launch_bounds__(lpc_ring::kLanes)
+    lpc2_kernel(const int32_t* __restrict__ rows, int ld_rows,
+                const int32_t* __restrict__ cfwd, int ld_cf,
+                const int32_t* __restrict__ shift,
+                const int32_t* __restrict__ order,
+                int32_t* __restrict__ out, int b, int n) {
+  extern __shared__ __align__(16) int32_t ring[];
+  const int s = blockIdx.x * lpc_ring::kLanes + threadIdx.x;
+  const int sc = min(s, n - 1);
+  Lpc2Step<HIST> step;
 #pragma unroll
   for (int r = 0; r < HIST; ++r) {
-    c[r] = (uint32_t)__ldg(cfwd + (size_t)r * ld_cf + s);
-    P[r] = 0u;
+    step.c[r] = (uint32_t)__ldg(cfwd + (size_t)r * ld_cf + sc);
+    step.P[r] = 0u;
   }
-  const uint32_t sh_u = (uint32_t)__ldg(shift + s);
-  const int sh = sh_u < 32u ? (int)sh_u : 31;
-  const int ord = __ldg(order + s);
-  const int32_t* in = rows + s;
-  int32_t* o = out + s;
-
-  int32_t cur[kUnroll], nxt[kUnroll];
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u) cur[u] = __ldg(in + (size_t)u * ld_rows);
-  for (int t0 = 0; t0 < b; t0 += kUnroll) {
-    if (t0 + kUnroll < b) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        nxt[u] = __ldg(in + (size_t)(t0 + kUnroll + u) * ld_rows);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 + u;
-      const int32_t pred = ((int32_t)P[0]) >> sh;
-      const uint32_t v =
-          t >= ord ? (uint32_t)cur[u] + (uint32_t)pred : (uint32_t)cur[u];
-      o[(size_t)t * n] = (int32_t)v;
-#pragma unroll
-      for (int r = 0; r < HIST - 1; ++r) P[r] = P[r + 1] + v * c[r];
-      P[HIST - 1] = v * c[HIST - 1];
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
-  }
+  const uint32_t sh_u = (uint32_t)__ldg(shift + sc);
+  step.sh = sh_u < 32u ? (int)sh_u : 31;
+  step.ord = __ldg(order + sc);
+  lpc_ring::drive(rows, ld_rows, out, b, n, ring, step.ord, step);
 }
 
 }  // namespace
@@ -92,32 +116,21 @@ extern "C" int zft_lpc2(const void* rows, int ld_rows, const void* cfwd,
                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (b <= 0 || b % kUnroll != 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  // One warp per block spreads the few lanes over as many SMs as
-  // possible.
-  const int threads = 32;
-  const int blocks = (n + threads - 1) / threads;
   cudaStream_t st = (cudaStream_t)stream;
-  const int32_t* rp = (const int32_t*)rows;
-  const int32_t* cp = (const int32_t*)cfwd;
-  const int32_t* sp = (const int32_t*)shift;
-  const int32_t* op = (const int32_t*)order;
-  int32_t* outp = (int32_t*)out;
   switch (hist) {
     case 8:
-      lpc2_kernel<8><<<blocks, threads, 0, st>>>(rp, ld_rows, cp, ld_cf, sp,
-                                                 op, outp, b, n);
-      break;
+      return lpc_ring::launch<int32_t>(lpc2_kernel<8>, b, n, st, rows,
+                                       ld_rows, cfwd, ld_cf, shift, order,
+                                       out);
     case 16:
-      lpc2_kernel<16><<<blocks, threads, 0, st>>>(rp, ld_rows, cp, ld_cf, sp,
-                                                  op, outp, b, n);
-      break;
+      return lpc_ring::launch<int32_t>(lpc2_kernel<16>, b, n, st, rows,
+                                       ld_rows, cfwd, ld_cf, shift, order,
+                                       out);
     case 32:
-      lpc2_kernel<32><<<blocks, threads, 0, st>>>(rp, ld_rows, cp, ld_cf, sp,
-                                                  op, outp, b, n);
-      break;
+      return lpc_ring::launch<int32_t>(lpc2_kernel<32>, b, n, st, rows,
+                                       ld_rows, cfwd, ld_cf, shift, order,
+                                       out);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -35,74 +35,172 @@
 //
 // What bounds it on the H100: the serial chain, as for lpc2. Each lane
 // is one thread that walks all B time steps; a 24-bit stereo stream at
-// block 4096 has some 1024 lanes per chunk. The chain per step is one
-// 64-bit shift (a funnel shift of two words), a 32-bit (K4) or 64-bit
-// (K5) add, and the multiply-add into P[0], a 64-bit add of two
-// instructions where lpc2 has one. Predicted before the first card
-// run: K4 about 1.5x lpc2's 84 ns per step at hist 8 (~125 ns), K5
-// about 2x (~170 ns); measured on an H100 80GB HBM3 at 700 W at the
-// bench streams' shapes, 92.5 and 114.2 ns (PERF.md §6). The
-// compiler builds the signed 32x32->64 product from IMAD.WIDE.U32
-// and two IMADs, which sit on the chain too. The design is lpc2's:
-// P and c in registers (HIST is a template argument, so every index
-// is static; at hist 32 P takes 64 registers: 62/100/164 registers in
-// all for K4 at hist 8/16/32, 76/126/186 for K5, no spills), residual
-// loads issued a group of 8 ahead so they sit off the chain, loads and
-// stores coalesced across lanes.
+// block 4096 has some 1024 lanes in its lpc8 class, and each of
+// decode_to_device's parallel-scan chunks a few hundred, so each SM
+// runs one warp. Reading each input byte and writing each output byte
+// once takes 0.010 ms at 3.35 TB/s on bench24's class.
+//
+// K4 (lpc2w) is redesigned on lpc2's ring (lpc_ring.cuh): residuals
+// copied into 3 shared-memory stages of 128 steps by cp.async, 256
+// steps ahead of the chain, read back 32 steps ahead into registers;
+// the select for warm-ups only in a stage that holds some lane's
+// warm-up; outputs stored as they are made. The earlier kernel, with loads
+// 8 steps ahead, took 92-103 ns a step on bench24's class (PERF.md §6).
+//
+// The step itself has two forms, picked per warp at the start:
+// - float64, when every coefficient of the warp's lanes lies in
+//   [-2^15, 2^15], which holds for every buffer the host scan writes
+//   (its coefficients have at most 16 bits). Products then have at
+//   most 46 bits and sums of 32 at most 51, so the doubles hold exact
+//   integers, each tap is one DFMA, and the prediction's low word is
+//   the low word of fma_rd(P[0], 2^-shift, 1.5 * 2^52). In the SASS
+//   (sm_90a; python3 -m zflac_tpu_torch.tools.kernel_sass) the chain
+//   is DFMA.RM (the
+//   rounded-down shift) -> IMAD.IADD (v = res + pred) -> I2F.F64 (v
+//   back to a double) -> DFMA (P[0]' = c0 * v + P[1]), and a step at
+//   hist 8 issues about 19 instructions (7 DFMA, a DMUL, the DFMA.RM,
+//   the I2F, the add, the LDS, the STG and the output pointer).
+// - int64, for any other coefficients: the low word of acc >> shift
+//   is one funnel shift, the product one signed 32x32->64 multiply
+//   (mad.wide.s32; the product of two sign-extended int64, as the
+//   earlier kernel wrote it, compiles to IMAD.WIDE.U32 and two IMADs). Its chain is
+//   five instructions: SHF.R.W.U32 -> IMAD.IADD -> IMAD.WIDE (ptxas
+//   splits the multiply-add and gives the multiply a zero addend) ->
+//   IADD3 and IMAD.X (+ P[1] with the carry) -> the next SHF, and a
+//   step at hist 8 issues about 26 instructions (9 IMAD.WIDE, the
+//   IADD3 / IADD3.X of the 64-bit sums).
+//   No stream reaches this form: the 4-bit precision field (plus one)
+//   caps a coefficient at 16 bits, even in a corrupt stream, so every
+//   buffer the host scan writes takes the float64 step. It is kept because the op's contract, which its
+//   plain version (ops/lpc2w.py) and lpc2w33 share, is the wrapping
+//   int64 recurrence for any int32 coefficient: a direct call with a
+//   wider coefficient still gets that, not a silently wrong float64
+//   sum. chip_smoke.py's synthetic cases plant 21-bit coefficients in
+//   one lane to hold it bit for bit. Its price is registers: with both
+//   forms the kernel takes 128 / 168 / 254 registers at hist 8 / 16 /
+//   32 (ptxas, no spills), 254 of the 255 a thread may have.
+// lpc2's rewrite (P[1] + c0 * res) + c0 * pred does not hold in either:
+// v wraps to 32 bits before it multiplies. An amount >= 32 zeroes the
+// lane's coefficients instead of masking each prediction, so no AND
+// sits on either chain.
+//
+// K5 (lpc2w33) keeps the earlier design for now: P and c in registers
+// (76/126/186 registers at hist 8/16/32, no spills), residual loads
+// issued a group of 8 ahead, loads and stores coalesced across lanes;
+// 114.2 ns a step on bench32ms's class. The ring is queued for it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lpc_ring.cuh"
 
 namespace {
 
 constexpr int kUnroll = 8;
 
+// (u)int64 = (int32) a * (int32) b + c: one signed 32x32->64 multiply
+// (the product of two sign-extended int64 compiles to IMAD.WIDE.U32
+// and two more IMADs).
+__device__ __forceinline__ uint64_t mad_wide(int32_t a, int32_t b,
+                                             uint64_t c) {
+  uint64_t d;
+  asm("mad.wide.s32 %0, %1, %2, %3;" : "=l"(d) : "r"(a), "r"(b), "l"(c));
+  return d;
+}
+
 template <int HIST>
-__global__ void lpc2w_kernel(const int32_t* __restrict__ rows, int ld_rows,
-                             const int32_t* __restrict__ cfwd, int ld_cf,
-                             const int32_t* __restrict__ shift,
-                             const int32_t* __restrict__ order,
-                             int32_t* __restrict__ out, int b, int n) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n) return;
+struct Lpc2wStep {
   int32_t c[HIST];
   uint64_t P[HIST];
+  int sh;
+  int ord;
+
+  // One step: the output at time t from its residual (or warm-up).
+  template <bool WARM>
+  __device__ __forceinline__ int32_t run(int32_t res, int t) {
+    // The low word of acc >> sh (sh <= 31) is one funnel shift.
+    const uint32_t pred =
+        __funnelshift_r((uint32_t)P[0], (uint32_t)(P[0] >> 32), sh);
+    uint32_t v = (uint32_t)res + pred;
+    if (WARM && t < ord) v = (uint32_t)res;
+#pragma unroll
+    for (int r = 0; r < HIST - 1; ++r)
+      P[r] = mad_wide(c[r], (int32_t)v, P[r + 1]);
+    P[HIST - 1] = mad_wide(c[HIST - 1], (int32_t)v, 0ull);
+    return (int32_t)v;
+  }
+};
+
+// The same step in float64, exact while every |c| <= 2^15: each
+// product then has at most 46 bits and a sum of 32 at most 51, so P
+// holds exact integers and every fma is exact. P[0] * 2^-sh +
+// 1.5 * 2^52, rounded down, has floor(P[0] / 2^sh) in its low mantissa
+// bits (|quotient| < 2^51), so the low word of that double is the low
+// word of acc >> sh, the int64 step's prediction.
+template <int HIST>
+struct Lpc2wF64Step {
+  double c[HIST];
+  double P[HIST];
+  double scale;  // 2^-sh
+  int ord;
+
+  template <bool WARM>
+  __device__ __forceinline__ int32_t run(int32_t res, int t) {
+    const double f = __fma_rd(P[0], scale, 6755399441055744.0);
+    uint32_t pred = (uint32_t)__double2loint(f);
+    if (WARM && t < ord) pred = 0u;
+    const uint32_t v = (uint32_t)res + pred;
+    const double vd = (double)(int32_t)v;
+#pragma unroll
+    for (int r = 0; r < HIST - 1; ++r) P[r] = fma(c[r], vd, P[r + 1]);
+    P[HIST - 1] = c[HIST - 1] * vd;
+    return (int32_t)v;
+  }
+};
+
+template <int HIST>
+__global__ void __launch_bounds__(lpc_ring::kLanes)
+    lpc2w_kernel(const int32_t* __restrict__ rows, int ld_rows,
+                 const int32_t* __restrict__ cfwd, int ld_cf,
+                 const int32_t* __restrict__ shift,
+                 const int32_t* __restrict__ order,
+                 int32_t* __restrict__ out, int b, int n) {
+  extern __shared__ __align__(16) int32_t ring[];
+  const int s = blockIdx.x * lpc_ring::kLanes + threadIdx.x;
+  const int sc = min(s, n - 1);
+  // An amount >= 32 (only a corrupt buffer holds one) makes every
+  // prediction 0: zero coefficients keep P at 0, and the funnel shift
+  // of 0 by 0 is that 0, with no mask on the chain.
+  const uint32_t sh_u = (uint32_t)__ldg(shift + sc);
+  const bool sh_ok = sh_u < 32u;
+  int32_t c[HIST];
+  bool small = true;
 #pragma unroll
   for (int r = 0; r < HIST; ++r) {
-    c[r] = __ldg(cfwd + (size_t)r * ld_cf + s);
-    P[r] = 0u;
+    c[r] = sh_ok ? __ldg(cfwd + (size_t)r * ld_cf + sc) : 0;
+    small = small && c[r] >= -32768 && c[r] <= 32768;
   }
-  const uint32_t sh_u = (uint32_t)__ldg(shift + s);
-  const int sh = sh_u < 32u ? (int)sh_u : 0;
-  const uint32_t keep = sh_u < 32u ? 0xFFFFFFFFu : 0u;
-  const int ord = __ldg(order + s);
-  const int32_t* in = rows + s;
-  int32_t* o = out + s;
-
-  int32_t cur[kUnroll], nxt[kUnroll];
+  const int ord = __ldg(order + sc);
+  if (__all_sync(0xFFFFFFFFu, small)) {
+    Lpc2wF64Step<HIST> step;
 #pragma unroll
-  for (int u = 0; u < kUnroll; ++u) cur[u] = __ldg(in + (size_t)u * ld_rows);
-  for (int t0 = 0; t0 < b; t0 += kUnroll) {
-    if (t0 + kUnroll < b) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        nxt[u] = __ldg(in + (size_t)(t0 + kUnroll + u) * ld_rows);
+    for (int r = 0; r < HIST; ++r) {
+      step.c[r] = (double)c[r];
+      step.P[r] = 0.0;
     }
+    step.scale = ldexp(1.0, sh_ok ? -(int)sh_u : 0);
+    step.ord = ord;
+    lpc_ring::drive(rows, ld_rows, out, b, n, ring, ord, step);
+  } else {
+    Lpc2wStep<HIST> step;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 + u;
-      const uint32_t pred = (uint32_t)((int64_t)P[0] >> sh) & keep;
-      const uint32_t v =
-          t >= ord ? (uint32_t)cur[u] + pred : (uint32_t)cur[u];
-      o[(size_t)t * n] = (int32_t)v;
-      const int64_t vi = (int32_t)v;
-#pragma unroll
-      for (int r = 0; r < HIST - 1; ++r)
-        P[r] = P[r + 1] + (uint64_t)((int64_t)c[r] * vi);
-      P[HIST - 1] = (uint64_t)((int64_t)c[HIST - 1] * vi);
+    for (int r = 0; r < HIST; ++r) {
+      step.c[r] = c[r];
+      step.P[r] = 0u;
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
+    step.sh = sh_ok ? (int)sh_u : 0;
+    step.ord = ord;
+    lpc_ring::drive(rows, ld_rows, out, b, n, ring, ord, step);
   }
 }
 
@@ -159,8 +257,8 @@ template <typename T>
 using Kernel = void (*)(const T*, int, const int32_t*, int, const int32_t*,
                         const int32_t*, T*, int, int);
 
-// One warp per block, as lpc2: the few lanes spread over as many SMs
-// as possible.
+// K5's launch: one warp per block, so the few lanes spread over as
+// many SMs as possible.
 template <typename T>
 int launch(Kernel<T> kern, const void* rows, int ld_rows, const void* cfwd,
            int ld_cf, const void* shift, const void* order, void* out, int b,
@@ -183,12 +281,25 @@ extern "C" int zft_lpc2w(const void* rows, int ld_rows, const void* cfwd,
                          int ld_cf, const void* shift, const void* order,
                          void* out, int b, int n, int hist, int device,
                          void* stream) {
-  const Kernel<int32_t> kern = hist == 8    ? lpc2w_kernel<8>
-                               : hist == 16 ? lpc2w_kernel<16>
-                               : hist == 32 ? lpc2w_kernel<32>
-                                            : nullptr;
-  return launch<int32_t>(kern, rows, ld_rows, cfwd, ld_cf, shift, order, out,
-                         b, n, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (hist) {
+    case 8:
+      return lpc_ring::launch<int32_t>(lpc2w_kernel<8>, b, n, st, rows,
+                                       ld_rows, cfwd, ld_cf, shift, order,
+                                       out);
+    case 16:
+      return lpc_ring::launch<int32_t>(lpc2w_kernel<16>, b, n, st, rows,
+                                       ld_rows, cfwd, ld_cf, shift, order,
+                                       out);
+    case 32:
+      return lpc_ring::launch<int32_t>(lpc2w_kernel<32>, b, n, st, rows,
+                                       ld_rows, cfwd, ld_cf, shift, order,
+                                       out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int zft_lpc2w33(const void* rows, int ld_rows, const void* cfwd,

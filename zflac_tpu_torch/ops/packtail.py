@@ -16,9 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from zflac_tpu import format as fmt
-
 from .. import _kernels
+from .. import format as fmt
 
 
 def _out_dtype(container_bits: int):

@@ -2,8 +2,8 @@
 zflac_tpu/runtime/decode.py): bytes -> host index -> device
 reconstruction -> assembly -> MD5 -> DecodedFLAC.
 
-The host indexer shared with the JAX package (zflac_tpu.index
-build_plan, or index_range for a byte range) builds a StreamPlan.
+The host indexer (index.build_plan, or index_range for a byte range;
+the port's copy of the JAX package's) builds a StreamPlan.
 _run_reconstruct pads it to the JAX package's bucketed shapes and
 sentinel-padded class lists, uploads it (one pinned, non-blocking copy
 of one packed buffer for int32 streams; one such copy per array for
@@ -16,7 +16,9 @@ work through the ordinary asynchrony of one CUDA stream: uploads and
 launches return at once, and the device-to-host copy in the collection
 loop waits for each chunk.
 
-This module imports no JAX.
+Every entry point runs on the card (device="cuda") unless the caller
+passes another device. This module imports neither JAX nor the JAX
+package.
 """
 
 from __future__ import annotations
@@ -25,21 +27,19 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from zflac_tpu import format as fmt
-from zflac_tpu.bitio import BitReader
-from zflac_tpu.errors import InvalidChecksum
-from zflac_tpu.index import build_plan
-from zflac_tpu.index import native_indexer
-from zflac_tpu.oracle import parse_metadata
-from zflac_tpu.plan import StreamPlan
-from zflac_tpu.result import DecodedFLAC, container_dtype
-
+from .. import format as fmt
+from ..bitio import BitReader
+from ..errors import InvalidChecksum
+from ..index import build_plan, native_indexer
+from ..oracle import parse_metadata
+from ..plan import StreamPlan
+from ..result import DecodedFLAC, container_dtype
 from .device import (estimate_total_frames, resolve_device, upload,
                      verify_stream_md5)
 from .pack import Packer
 from .reconstruct import reconstruct, reconstruct_packed
 
-ENGINES = ("auto", "torch", "native")
+ENGINES = ("torch", "native")
 _PLAN_ARRAYS = ("rows", "kind", "order", "wasted", "shift", "coeffs",
                 "seeds", "channel_code")
 
@@ -203,15 +203,6 @@ def _chunk_bytes_estimate(data: bytes, pos: int, info,
                (len(data) - pos) * chunk_frames // total_frames)
 
 
-def torch_device(device):
-    """The device of a request to the torch engine: explicit, and
-    resolved by runtime.device.resolve_device."""
-    if device is None:
-        raise ValueError("the torch engine needs an explicit device "
-                         "(device='cuda', 'cuda:N' or 'cpu')")
-    return resolve_device(device)
-
-
 def normalize(out: np.ndarray, bps: int) -> np.ndarray:
     """The bit-depth normalization (zflac.zig:287-306; wraps in the
     container)."""
@@ -228,11 +219,12 @@ def _finish(out: np.ndarray, bps: int, md5: bytes,
 
 
 def decode_pipelined(data: bytes, chunk_frames: int = 64,
-                     verify_md5: bool = True, *, device=None) -> DecodedFLAC:
+                     verify_md5: bool = True, *,
+                     device="cuda") -> DecodedFLAC:
     """Chunked decode on `device`: the host indexes chunk i+1 while the
     device reconstructs chunk i (each chunk's uploads and launches are
     queued without waiting, and collected in order afterwards)."""
-    device = torch_device(device)
+    device = resolve_device(device)
     if not native_indexer.native_available():
         return decode(data, verify_md5=verify_md5, engine="torch",
                       device=device)
@@ -278,11 +270,12 @@ def decode_pipelined(data: bytes, chunk_frames: int = 64,
     )
 
 
-def stream_decode(data: bytes, chunk_frames: int = 64, *, device=None):
+def stream_decode(data: bytes, chunk_frames: int = 64, *,
+                  device="cuda"):
     """Streaming decode on `device`: yields interleaved PCM chunks
     (normalized container samples) as they are produced, chunk i+1
     indexed and launched before chunk i is collected."""
-    device = torch_device(device)
+    device = resolve_device(device)
     br = BitReader(data)
     info = parse_metadata(br)
     pos = br.pos // 8
@@ -317,8 +310,9 @@ def stream_decode(data: bytes, chunk_frames: int = 64, *, device=None):
 
 def _decode_native(data: bytes, check_crc: bool,
                    verify_md5: bool) -> DecodedFLAC:
-    """The host engine shared with the JAX package: parallel sync-scan
-    index and threaded C++ reconstruction, MD5 hashed inline."""
+    """The host engine (the port's copy of the JAX package's native
+    library): parallel sync-scan index and threaded C++
+    reconstruction, MD5 hashed inline."""
     arr, meta = native_indexer.decode_native_parallel(
         data, check_crc=check_crc, compute_md5=verify_md5)
     si_bps = meta["si_bits_per_sample"]
@@ -346,33 +340,28 @@ def _decode_native(data: bytes, check_crc: bool,
 
 def decode(data: bytes, check_crc: bool = False, verify_md5: bool = True,
            prefer_native: bool = True, safe_lpc: bool = False,
-           engine: str = "auto", *, device=None) -> DecodedFLAC:
+           engine: str = "torch", *, device="cuda") -> DecodedFLAC:
     """Decode a stream.
 
     engine:
-      "auto"   the native engine when available (and neither
-               prefer_native=False nor safe_lpc asks otherwise), else
-               "torch".
-      "torch"  host index + reconstruction on `device` ("cuda",
-               "cuda:N" or "cpu", required): the counterpart of the JAX
-               package's "tpu" engine.
-      "native" parallel C++ index + threaded C++ reconstruction.
+      "torch"  (the default) host index + reconstruction on `device`
+               ("cuda", the default, "cuda:N" or "cpu"): the
+               counterpart of the JAX package's "tpu" engine.
+      "native" parallel C++ index + threaded C++ reconstruction, all on
+               the host; only an explicit request takes it.
+    prefer_native: build the torch engine's plan with the C++ indexer
+    when it is available (else the Python one).
     safe_lpc: route an int32 stream's LPC subframes through the int64
     accumulator (lpc64), as the JAX package's safe_lpc does.
     """
     if engine not in ENGINES:
         # A typo'd engine must not fall through to a default path.
         raise ValueError(
-            f"unknown engine {engine!r}; expected 'auto', 'torch', or "
-            "'native'")
-    if engine == "auto":
-        engine = "native" if (native_indexer.native_available()
-                              and prefer_native and not safe_lpc) \
-            else "torch"
+            f"unknown engine {engine!r}; expected 'torch' or 'native'")
     if engine == "native":
         return _decode_native(data, check_crc, verify_md5)
 
-    device = torch_device(device)
+    device = resolve_device(device)
     plan = build_plan(data, check_crc=check_crc,
                       prefer_native=prefer_native)
     if safe_lpc and plan.rows.dtype == np.int32:

@@ -3,7 +3,7 @@ zflac_tpu/runtime/device.py).
 
 `decode_to_device` turns compressed FLAC bytes into PCM in device
 memory. Phase 1 is the host C++ scan (`pack2_range`,
-zflac_tpu/index/native_indexer.py), shared with the JAX package: it
+index/native_indexer.py, the port's copy of the JAX package's): it
 walks the serial bitstream once and writes one int32 plan buffer per
 chunk. Phase 2 uploads that buffer with one pinned, stream-ordered
 host-to-device copy and reconstructs the chunk on the device:
@@ -25,9 +25,11 @@ plain PyTorch version instead.
 Every stream the JAX package's decode_to_device takes is covered: 1-8
 channels, containers 8, 16 and 32, and 33-bit side channels.
 
-This module imports no JAX: the jax-free host pieces of the JAX
-package's runtime (chunk scan, frame estimate, class caps, MD5 check,
-stop cut) are copied here, not imported.
+This module imports neither JAX nor the JAX package: the host pieces
+of the JAX package's runtime (chunk scan, frame estimate, class caps,
+MD5 check, stop cut) are copied here, and the host modules it builds
+on (format, bitio, errors, index, oracle, result) are the port's own
+copies of the JAX package's.
 """
 
 from __future__ import annotations
@@ -41,17 +43,16 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from zflac_tpu import format as fmt
-from zflac_tpu.bitio import BitReader
-from zflac_tpu.errors import InconsistentParameters, InvalidChecksum
-from zflac_tpu.index import native_indexer
-from zflac_tpu.oracle import parse_metadata
-from zflac_tpu.result import DecodedFLAC, container_dtype
-
+from .. import format as fmt
+from ..bitio import BitReader
+from ..errors import InconsistentParameters, InvalidChecksum
+from ..index import native_indexer
+from ..oracle import parse_metadata
 from ..ops.lpc2 import lpc2_reconstruct
 from ..ops.lpc2w import lpc2w33_reconstruct, lpc2w_reconstruct
 from ..ops.packtail import packtail
 from ..ops.rice16 import rice16_unpack_rows
+from ..result import DecodedFLAC, container_dtype
 from .reconstruct import decorrelate2, fixed_integrate_t
 from .wide import join_i64, wrap_to
 
@@ -504,24 +505,14 @@ def apply_stop_cut(block_sizes, total: int):
     return None
 
 
-def decode_to_device(data: bytes, *, device, check_crc: bool = False,
-                     chunk_frames: int = 0, scan_workers: int = 0):
-    """Decode a stream to PCM on `device` ("cuda", "cuda:N" or "cpu").
-
-    Returns a DeviceDecoded, or None where the JAX package's
-    decode_to_device declines (exotic or mismatching streams, no
-    native scan library). A CUDA device with no card raises; nothing
-    moves to the CPU by itself. The host scan runs in parallel
-    (scan_workers=0 picks the core count, up to 8); uploads and
-    kernels are queued on the current stream without waiting."""
-    device = resolve_device(device)
-    if not native_indexer.native_available():
-        return None
-    br = BitReader(data)
-    info = parse_metadata(br)
-    if info.bits_per_sample > 32:
-        return None
-    pos = br.pos // 8
+def stream_chunks(data: bytes, info, pos: int, *, check_crc: bool = False,
+                  chunk_frames: int = 0, scan_workers: int = 0,
+                  stats: dict | None = None):
+    """The pack2 chunks decode_to_device reconstructs for the stream
+    whose frames start at byte `pos`: a parallel scan, then, where the
+    chunks' geometries differ, a re-scan of each with their union.
+    Returns a list of Pack2Chunk, or None (decline). Fills `stats` with
+    the host-clock times of the scan and the re-scan."""
     Bp = _bucket_block(max(info.max_block_size, 16))
     t_scan = time.perf_counter()
     if chunk_frames <= 0:
@@ -558,6 +549,37 @@ def decode_to_device(data: bytes, *, device, check_crc: bool = False,
         if any(ck is None or ck.landed != nat.landed
                for ck, (_, nat) in zip(cks, chunks)):
             return None
+    if stats is not None:
+        t_end = time.perf_counter()
+        stats.update(scan_ms=(t_rescan - t_scan) * 1e3,
+                     rescan_ms=(t_end - t_rescan) * 1e3)
+    return cks
+
+
+def decode_to_device(data: bytes, *, device="cuda", check_crc: bool = False,
+                     chunk_frames: int = 0, scan_workers: int = 0):
+    """Decode a stream to PCM on `device` ("cuda", the default,
+    "cuda:N" or "cpu").
+
+    Returns a DeviceDecoded, or None where the JAX package's
+    decode_to_device declines (exotic or mismatching streams, no
+    native scan library). A CUDA device with no card raises; nothing
+    moves to the CPU unless the caller asks for it. The host scan runs
+    in parallel (scan_workers=0 picks the core count, up to 8); uploads
+    and kernels are queued on the current stream without waiting."""
+    device = resolve_device(device)
+    if not native_indexer.native_available():
+        return None
+    br = BitReader(data)
+    info = parse_metadata(br)
+    if info.bits_per_sample > 32:
+        return None
+    times = {}
+    cks = stream_chunks(data, info, br.pos // 8, check_crc=check_crc,
+                        chunk_frames=chunk_frames,
+                        scan_workers=scan_workers, stats=times)
+    if not cks:
+        return None
 
     t_enqueue = time.perf_counter()
     dd = None
@@ -583,9 +605,7 @@ def decode_to_device(data: bytes, *, device, check_crc: bool = False,
     # union re-scan, and queueing the uploads and kernels (the device
     # work itself is not waited for).
     t_end = time.perf_counter()
-    dd.stats.update(chunks=len(dd.chunks),
-                    scan_ms=(t_rescan - t_scan) * 1e3,
-                    rescan_ms=(t_enqueue - t_rescan) * 1e3,
+    dd.stats.update(chunks=len(dd.chunks), **times,
                     enqueue_ms=(t_end - t_enqueue) * 1e3)
     if info.total_samples and dd.total_samples > info.total_samples:
         cut = apply_stop_cut(dd.block_sizes, info.total_samples)

@@ -21,8 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from zflac_tpu import format as fmt
-
+from .. import format as fmt
 from ..ops.lpc import clamp_shift, lpc_reconstruct
 from .pack import unpack
 from .scatter import gather_rows, scatter_rows

@@ -7,37 +7,61 @@ SEEKTABLE point when the stream has one. decode_tolerant skips a
 corrupt region to the next CRC-validated frame and places each decoded
 segment at the exact sample position its coded number gives, with
 silence in the gaps. Both reconstruct through runtime/decode.py's
-_run_reconstruct on the requested device. The host pieces (indexer,
-metadata probe, the frame-range view _slice_plan) are the JAX
-package's own jax-free modules.
+_run_reconstruct on the requested device ("cuda" unless the caller
+asks for another). The host pieces (indexer, metadata probe) are the
+port's copies of the JAX package's modules; _slice_plan is copied from
+zflac_tpu/runtime/seek.py.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
-from zflac_tpu.bitio import BitReader
-from zflac_tpu.errors import FlacError
-from zflac_tpu.index import build_plan
-from zflac_tpu.index import native_indexer
-from zflac_tpu.metadata import probe
-from zflac_tpu.oracle import parse_metadata
-from zflac_tpu.result import DecodedFLAC, container_dtype
-from zflac_tpu.runtime.seek import _slice_plan
+from ..bitio import BitReader
+from ..errors import FlacError
+from ..index import build_plan, native_indexer
+from ..metadata import probe
+from ..oracle import parse_metadata
+from ..result import DecodedFLAC, container_dtype
+from .decode import _assemble, _run_reconstruct, normalize
+from .device import resolve_device, verify_stream_md5
 
-from .decode import _assemble, _run_reconstruct, normalize, torch_device
-from .device import verify_stream_md5
+
+def _slice_plan(plan, f0: int, f1: int):
+    """Frame-range view [f0, f1) of a plan (arrays sliced, offsets
+    rebased)."""
+    C = plan.channels
+    return dataclasses.replace(
+        plan,
+        block_size=plan.block_size[f0:f1],
+        channel_code=plan.channel_code[f0:f1],
+        pcm_start=plan.pcm_start[f0:f1] - plan.pcm_start[f0],
+        frame_byte_offset=plan.frame_byte_offset[f0:f1],
+        coded_number=plan.coded_number[f0:f1],
+        rows=plan.rows[f0 * C:f1 * C],
+        kind=plan.kind[f0 * C:f1 * C],
+        order=plan.order[f0 * C:f1 * C],
+        wasted=plan.wasted[f0 * C:f1 * C],
+        shift=plan.shift[f0 * C:f1 * C],
+        coeffs_rev=plan.coeffs_rev[f0 * C:f1 * C],
+        fixed_seeds=plan.fixed_seeds[f0 * C:f1 * C],
+        wide=plan.wide[f0 * C:f1 * C],
+        total_samples=int(np.sum(plan.block_size[f0:f1])),
+        groups=None,
+    )
 
 
 def decode_range(data: bytes, start_sample: int, num_samples: int,
                  prefer_native: bool = True, use_seektable: bool = True,
-                 *, device=None) -> DecodedFLAC:
+                 *, device="cuda") -> DecodedFLAC:
     """Decode on `device` only the frames covering [start_sample,
     start_sample + num_samples) and trim to exactly that range. The
     stream MD5 cannot be verified for a partial decode. With
     use_seektable, a SEEKTABLE point limits indexing to the needed
     byte range."""
-    device = torch_device(device)
+    device = resolve_device(device)
     if use_seektable:
         r = _decode_range_indexed(data, start_sample, num_samples, device)
         if r is not None:
@@ -131,13 +155,13 @@ def _decode_range_indexed(data: bytes, start_sample: int,
 
 
 def decode_tolerant(data: bytes, max_resyncs: int = 64, *,
-                    device=None) -> DecodedFLAC:
+                    device="cuda") -> DecodedFLAC:
     """Error-recovering decode on `device`: on a malformed region,
     resynchronize at the next CRC-validated frame and fill the gap with
     silence at the exact sample position recovered from coded numbers.
     Returns the best-effort PCM plus recovery stats (the MD5 result is
     reported in stats["md5_ok"], not raised)."""
-    device = torch_device(device)
+    device = resolve_device(device)
     if not native_indexer.native_available():
         raise RuntimeError("tolerant decode needs the native indexer")
 
