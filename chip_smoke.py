@@ -11,7 +11,8 @@ build/zflac_tpu_torch/, then:
   1. prints the card (nvidia-smi name and power limit), torch and CUDA;
   2. builds the kernels (one nvcc per source) and the scan library at
      once, times the build and prints ptxas's registers and spills for
-     the ring kernels lpc2 and lpc2w;
+     the ring kernels (lpc2, lpc2w and lpc2w33 at hist 8/16/32, lpc at
+     int32 and int64);
   3. makes the streams: three full-width bench streams of correlated
      stereo, block 4096, 44.1 kHz, encoded in parallel processes and
      cached in .bench_cache/ (bench16: bench.py's 2**22 samples per
@@ -24,14 +25,17 @@ build/zflac_tpu_torch/, then:
      every stream's real pack2 chunk sections, lpc and lpc64 on the LPC
      classes of every stream's rows-engine plan (gathered as the rows
      engine gathers them, a safe_lpc plan of bench16 too), and all of
-     them on seeded synthetic inputs (lpc2 and lpc2w over hist 8/16/32,
-     1 to 2048 lanes, B 8 to 4096, orders 0-32, every shift amount,
-     unaligned lane slices); then times each kernel and its plain
-     version at the bench shapes (CUDA events, median of 25 batches of
-     back-to-back calls after warm-up; 5 for the plain lpc and lpc64, a
-     Python loop of 4096 steps) beside its bound, and lpc2 and lpc2w
-     on each chunk decode_to_device reconstructs for bench16 and
-     bench24, in ns a step;
+     them on seeded synthetic inputs (the five ring kernels over hist
+     8/16/32, 1 to 2048 lanes, B 8 to 4096, orders 0-32, every shift
+     amount, unaligned lane slices, warps of one launch that take
+     different histories and shift forms); then times each kernel and
+     its plain version at the bench shapes (CUDA events, median of 25
+     batches of back-to-back calls after warm-up; 5 for the plain lpc
+     and lpc64, a Python loop of 4096 steps) beside its bound, lpc64
+     also on bench32ms's rows class and bench16's safe_lpc class, the
+     redesigned kernels at hist 32, and lpc2, lpc2w and lpc2w33 on each
+     chunk decode_to_device reconstructs for bench16, bench24 and
+     bench32ms, in ns a step;
   5. drives both main paths, each with the launch counters reset just
      before and read just after (each kernel of the path must have
      launched): decode_to_device on each bench stream, and the rows
@@ -97,6 +101,7 @@ from zflac_tpu_torch.ops.rice16 import (K2_ESCAPE, K2_INVALID,
 from zflac_tpu_torch.runtime import decode as rd
 from zflac_tpu_torch.runtime import device as rt
 from zflac_tpu_torch.runtime.reconstruct import lpc_class_inputs
+from zflac_tpu_torch.tools.kernel_sass import kernel_name
 
 BENCH_BLOCK = 4096
 # name -> (samples per channel, bits per sample, stereo mode, the
@@ -153,14 +158,14 @@ def seconds(fn) -> float:
 
 def ptxas_summary() -> list:
     """ptxas's registers, stack and spills for each instantiation of
-    the ring kernels (lpc2, lpc2w), from the build's report."""
+    the ring kernels (lpc2, lpc2w, lpc2w33, lpc), from the build's
+    report."""
     out, name = [], None
     with open(_kernels.PTXAS_REPORT) as f:
         for line in f:
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                k = re.search(r"(lpc2w?_kernel)ILi(\d+)E", m.group(1))
-                name = f"{k.group(1)}<{k.group(2)}>" if k else None
+                name = kernel_name(m.group(1))
             elif name and ("Used" in line or "spill" in line):
                 out.append(f"ptxas {name}: {line.split(' : ')[-1].strip()}")
     return out
@@ -354,42 +359,84 @@ def hires_inputs(rng, n: int, B: int, hist: int, warm_bits: int):
 RING_N = (1, 31, 33, 256, 2048)
 RING_B = (8, 128, 200, 4096)
 RING_COL = 3
+HISTS = (8, 16, 32)
+
+
+def ring_fns(name: str):
+    """(kernel wrapper, plain version) of ring kernel `name`."""
+    if name in LPC_PLAIN:
+        return rt.LPC_KERNELS[name], LPC_PLAIN[name]
+    return lpc_reconstruct, lpc_reconstruct_ref
+
+
+def hist_of(name: str, cf) -> int:
+    """The history a ring kernel runs on coefficients cf: its rows for
+    lpc2, lpc2w and lpc2w33; for lpc and lpc64 (rows layout) the
+    smallest of 8, 16 and 32 that covers the highest nonzero row of any
+    lane, which the widest warp picks."""
+    if name not in ("lpc", "lpc64"):
+        return cf.shape[0]
+    live = torch.nonzero(cf.flip(0).ne(0).any(dim=1)).flatten()
+    top = int(live.max()) + 1 if live.numel() else 0
+    return next(h for h in HISTS if top <= h)
 
 
 def ring_inputs(rng, name: str, n: int, B: int, hist: int):
-    """Seeded inputs for lpc2 / lpc2w over every order 0..32 (warm-ups
-    longer than the history too) and every shift of SHIFTS: lpc2's
-    15-bit coefficients wrap int32; lpc2w takes hires_inputs' bounded
-    30-bit signals whose 64-bit sums pass 2^32, and past 32 lanes gives
-    the last lane 21-bit coefficients, so the last warp runs lpc2w's
-    int64 step and the others its float64 step."""
-    if name == "lpc2w":
-        rows, cf, shift, order = hires_inputs(rng, n, B, hist, 30)
-        if n > 32:  # the last warp's last lane: 21-bit coefficients
+    """Seeded inputs for a ring kernel over every order 0..32 (warm-ups
+    longer than the history too) and every shift of SHIFTS (lanes 32-41,
+    the second warp, hold the out-of-range ones, so that warp alone
+    takes lpc2w33's and lpc64's shift rule): lpc2's and lpc's 15-bit
+    coefficients wrap int32; lpc2w, lpc2w33 and lpc64 take hires_inputs'
+    bounded signals (30-bit, 33-bit and 33-bit) whose 64-bit sums pass
+    2^32, and past 32 lanes lpc2w gives the last lane 21-bit
+    coefficients, so the last warp runs lpc2w's int64 step and the
+    others its float64 step. lpc and lpc64 take the rows engine's
+    layout ([32, n], row j for s[t-32+j]) with warp w's coefficients
+    nonzero up to row 8, 16 or 32 in turn, from `hist` for warp 0, so
+    the warps of one launch pick different histories; past 32 lanes the
+    last lane has one nonzero coefficient, in the oldest row."""
+    rows_engine = name in ("lpc", "lpc64")
+    H = 32 if rows_engine else hist
+    if name in ("lpc2w", "lpc2w33", "lpc64"):
+        rows, cf, shift, order = hires_inputs(rng, n, B, H,
+                                              30 if name == "lpc2w" else 33)
+        if name == "lpc2w" and n > 32:  # the last warp's last lane
             cf[:, -1] = rng.integers(-2**20, 2**20, hist)
     else:
         rows = rng.integers(-(1 << 15), 1 << 15, (B, n))
-        cf = rng.integers(-(1 << 14), 1 << 14, (hist, n))
+        cf = rng.integers(-(1 << 14), 1 << 14, (H, n))
         shift = rng.integers(0, 16, n)
         shift[:len(SHIFTS)] = SHIFTS[:n]
     order = rng.integers(0, 33, n)
     order[:33] = np.arange(33)[:n]
-    cf = cf * (np.arange(hist)[:, None] < order[None, :])
-    return (rows.astype(np.int32), cf.astype(np.int32),
+    top = order
+    if rows_engine:
+        first = HISTS.index(hist)
+        top = np.minimum(order, [HISTS[(first + s // 32) % 3]
+                                 for s in range(n)])
+    cf = cf * (np.arange(H)[:, None] < top[None, :])
+    if rows_engine:
+        if n > 32:
+            cf[:, -1] = 0
+            cf[31, -1] = 3
+        cf = cf[::-1]
+    dtype = np.int64 if name in ("lpc2w33", "lpc64") else np.int32
+    return (rows.astype(dtype), np.ascontiguousarray(cf, dtype=np.int32),
             shift.astype(np.int32), order.astype(np.int32))
 
 
 def ring_checks(rng, t, diff: Diff) -> None:
-    """lpc2 and lpc2w, the shared-memory ring kernels, bit for bit
-    against their plain versions at hist 8/16/32, every n of RING_N and
-    B of RING_B, with rows and coefficients as lane slices of wider
-    arrays: starting at column RING_COL with an odd row stride, so
-    neither base address nor row stride is 16-byte aligned (the ring's
-    4-byte copies), and starting at column 0 with a stride of whole
-    16-byte units (its 16-byte copies, in every block whose 32 lanes
-    exist)."""
-    for name in ("lpc2", "lpc2w"):
-        for hist in (8, 16, 32):
+    """The ring kernels (lpc2, lpc2w, lpc2w33, lpc, lpc64) bit for bit
+    against their plain versions at hist 8/16/32 (for lpc and lpc64 the
+    history warp 0 picks), every n of RING_N and B of RING_B, with rows
+    and coefficients as lane slices of wider arrays: starting at column
+    RING_COL with an odd row stride, so neither base address nor row
+    stride is 16-byte aligned (the ring's one-value copies), and
+    starting at column 0 with a stride of whole 16-byte units (its
+    16-byte copies, in every block whose 32 lanes exist)."""
+    for name in ("lpc2", "lpc2w", "lpc2w33", "lpc", "lpc64"):
+        kern, plain = ring_fns(name)
+        for hist in HISTS:
             for n in RING_N:
                 for B in RING_B:
                     for col, right in ((RING_COL, 4 + n % 2),
@@ -405,9 +452,8 @@ def ring_checks(rng, t, diff: Diff) -> None:
                                    and args[0].stride(0) % 4 == 0)
                         assert aligned == (col == 0)
                         diff.check(name, f"synthetic hist={hist} n={n} "
-                                   f"B={B} column {col}",
-                                   rt.LPC_KERNELS[name](*args),
-                                   LPC_PLAIN[name](*args))
+                                   f"B={B} column {col}", kern(*args),
+                                   plain(*args))
 
 
 def synthetic_checks(dev, diff: Diff) -> None:
@@ -525,6 +571,50 @@ def path_times(name: str, chunks, line: str) -> None:
         f"chunks: " + "; ".join(parts) + f"; {len(parts)} launches, "
         f"{total:.4f} ms a call against a bound of {bnd:.4f} ms (median "
         f"of {REPS} batches each, CUDA events) on {line}")
+
+
+def hist32_inputs(dev) -> dict:
+    """Seeded order-32 inputs at the bench widths, for the redesigned
+    kernels at hist 32: lpc2w33 at bench32ms's class width, lpc at
+    bench16's rows class, lpc64 at bench24's (label -> kernel
+    arguments)."""
+    rng = np.random.default_rng(32)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    out = {}
+    for label, n, bits in (("lpc2w33", 512, 33), ("lpc", 2048, 16),
+                           ("lpc64", 1024, 33)):
+        rows, cf, shift, order = hires_inputs(rng, n, BENCH_BLOCK, 32, bits)
+        if label == "lpc2w33":
+            args = (rows, cf)
+        else:  # the rows engine's layout: row j for s[t-32+j]
+            args = (rows.astype(np.int32 if label == "lpc" else np.int64),
+                    np.ascontiguousarray(cf[::-1]))
+        out[f"{label} hist 32 [{BENCH_BLOCK}, {n}]"] = (
+            label, (t(args[0]), t(args[1]), t(shift), t(order)))
+    return out
+
+
+def extra_times(diff: Diff, hist32: dict, rows_ins: dict, safe_ins: dict,
+                line: str) -> None:
+    """lpc64 on bench32ms's rows class and bench16's safe_lpc class
+    (beside bench24's, timed with the others), and the redesigned
+    kernels on order-32 inputs (hist 32), checked against their plain
+    versions first: kernel ms and ns a step against the bound."""
+    for label, (name, args) in hist32.items():
+        kern, plain = ring_fns(name)
+        diff.check(name, label, kern(*args), plain(*args))
+    cases = {"lpc64 bench32ms rows lpc": ("lpc64",
+                                          rows_ins["bench32ms"]["lpc"]),
+             "lpc64 bench16 safe_lpc rows lpc_wide": (
+                 "lpc64", safe_ins["lpc_wide"]), **hist32}
+    for label, (name, args) in cases.items():
+        kern, _ = ring_fns(name)
+        ms = cuda_ms(lambda: kern(*args))
+        b_ms, by = bound(name, args, kern(*args))
+        B, n = args[0].shape
+        say("kernels", f"{label}: rows [{B}, {n}] {args[0].dtype}, hist "
+            f"{hist_of(name, args[1])}, {ms:.4f} ms = {ms / B * 1e6:.1f} ns a step (median of {REPS} "
+            f"batches, CUDA events), bound {b_ms:.4f} ms by {by}; on {line}")
 
 
 def decode_check(what: str, data: bytes, want: np.ndarray,
@@ -748,8 +838,8 @@ def main() -> None:
         kernel_checks(dev, diff, name, first_chunk(data))
     rows_ins = {name: rows_lpc_checks(dev, diff, f"{name} rows plan", data)
                 for name, (data, _) in benches.items()}
-    rows_lpc_checks(dev, diff, "bench16 safe_lpc rows plan",
-                    benches["bench16"][0], safe_lpc=True)
+    safe_ins = rows_lpc_checks(dev, diff, "bench16 safe_lpc rows plan",
+                               benches["bench16"][0], safe_lpc=True)
     for name, (data, _) in corpus.items():
         rows_lpc_checks(dev, diff, f"{name} rows plan", data)
     synthetic_checks(dev, diff)
@@ -813,14 +903,15 @@ def main() -> None:
         if name in lpc_args:
             B, n = lpc_args[name][0].shape
             shape = (f" (rows [{B}, {n}] {lpc_args[name][0].dtype}, hist "
-                     f"{lpc_args[name][1].shape[0]}: "
+                     f"{hist_of(name, lpc_args[name][1])}: "
                      f"{times[name][0] / B * 1e6:.1f} ns per step)")
         say("kernels", f"{name} at {where} shapes{shape}: kernel "
             f"{times[name][0]:.4f} ms (median of {REPS} batches), plain "
             f"PyTorch {times[name][1]:.4f} ms (median of {plain_reps} "
             f"batches); per call, CUDA events; bound "
             f"{bounds[name][0]:.4f} ms by {bounds[name][1]}; on {line}")
-    for name in ("bench16", "bench24"):
+    extra_times(diff, hist32_inputs(dev), rows_ins, safe_ins, line)
+    for name in BENCH:
         path_times(name, path_ins[name], line)
 
     # ---- the main path, counted: each bench stream's own run ----

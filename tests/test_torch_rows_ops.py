@@ -145,6 +145,50 @@ def test_lpc_shift_range_matches_jax(dtype):
         np.testing.assert_array_equal(got, want)
 
 
+# Lags a 32-lane group's coefficients reach, in turn (the histories the
+# lpc and lpc64 kernels pick per warp), and the out-of-range shift
+# amounts of _SHIFTS.
+_GROUP_LAGS = (8, 16, 32)
+_BAD_SHIFTS = _SHIFTS[8:]
+
+
+@pytest.mark.parametrize("pattern", ["lags", "oldest", "shifts"])
+@pytest.mark.parametrize("n", [1, 31, 33, 97])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_lpc_warp_patterns_match_jax(dtype, n, pattern):
+    """lpc's and lpc64's plain versions == _lpc_scan (int64 under x64)
+    on the inputs that drive the kernels' per-warp picks: lanes
+    32g..32g+31 with coefficients up to lag 8, 16 and 32 in turn
+    ('lags'); that, and the last lane's one nonzero coefficient at lag
+    32, the oldest row ('oldest'); and the last group's lanes on the
+    out-of-range shift amounts ('shifts')."""
+    rng = np.random.default_rng(n * 10 + len(pattern))
+    B = 64
+    if dtype == np.int64:
+        rows, coeffs_rev, shift, order = _lpc_case(
+            rng, n, B, coeff_bits=15, warm_bits=33, res_bits=11,
+            bounded=True)
+    else:
+        rows, coeffs_rev, shift, order = _lpc_case(rng, n, B)
+    rows = rows.astype(dtype)
+    lags = np.array([_GROUP_LAGS[s // 32 % 3] for s in range(n)])
+    coeffs_rev = coeffs_rev * (np.arange(32)[None, :] >= 32 - lags[:, None])
+    order = np.minimum(order, lags).astype(np.int32)
+    if pattern == "oldest":
+        coeffs_rev[-1] = 0
+        coeffs_rev[-1, 0] = 5           # slot 0 multiplies s[t-32]
+    if pattern == "shifts":
+        g0 = (n - 1) // 32 * 32
+        shift[g0:] = np.resize(_BAD_SHIFTS, n - g0)
+    with jax.enable_x64(dtype == np.int64):
+        want = np.asarray(jax.jit(_lpc_scan)(
+            jnp.asarray(rows), jnp.asarray(coeffs_rev.astype(np.int32)),
+            jnp.asarray(shift), jnp.asarray(order)))
+    assert want.dtype == dtype
+    for got in _port_lpc(rows, coeffs_rev.astype(np.int32), shift, order):
+        np.testing.assert_array_equal(got, want)
+
+
 def test_lpc_strided_time_major_view():
     """The wrapper takes time-major rows with a row stride wider than
     the subframe count, as a slice of a wider array."""

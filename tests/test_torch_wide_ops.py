@@ -158,6 +158,55 @@ def test_lpc2w_shift_range_matches_jax(kernel):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+# Lags a 32-lane group's coefficients reach, in turn (the histories the
+# kernels pick per warp), and the out-of-range shift amounts of _SHIFTS.
+_GROUP_LAGS = (8, 16, 32)
+_BAD_SHIFTS = _SHIFTS[8:]
+
+
+@pytest.mark.parametrize("pattern", ["lags", "oldest", "shifts"])
+@pytest.mark.parametrize("n", [1, 31, 33, 97])
+def test_lpc2w33_warp_patterns_match_jax(n, pattern):
+    """lpc2w33's plain version == lpc2w33_scan and the Pallas lpc2w33
+    kernel in interpret mode on the inputs that drive the kernel's
+    per-warp picks, at hist 32: lanes 32g..32g+31 with coefficients up
+    to lag 8, 16 and 32 in turn ('lags'); that, and the last lane's one
+    nonzero coefficient in the oldest row ('oldest'); and the last
+    group's lanes on the out-of-range shift amounts ('shifts')."""
+    from zflac_tpu.ops.lpc2w import (lpc2w33_reconstruct_inline,
+                                     lpc2w33_scan)
+    from zflac_tpu_torch.ops.lpc2w import (lpc2w33_reconstruct,
+                                           lpc2w33_reconstruct_ref)
+
+    hist, B = 32, 64
+    rng = np.random.default_rng(n * 10 + len(pattern))
+    rows, cf, shift, order = _hires_inputs(rng, n, B, hist, 33)
+    lags = np.array([_GROUP_LAGS[s // 32 % 3] for s in range(n)])
+    cf = cf * (np.arange(hist)[:, None] < lags[None, :])
+    order = np.minimum(order, lags).astype(np.int32)
+    if pattern == "oldest":
+        cf[:, -1] = 0
+        cf[hist - 1, -1] = 5
+    if pattern == "shifts":
+        g0 = (n - 1) // 32 * 32
+        shift[g0:] = np.resize(_BAD_SHIFTS, n - g0)
+    hi, lo = _pair(rows)
+    jargs = (jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(cf),
+             jnp.asarray(shift[None, :]), jnp.asarray(order[None, :]))
+    want = [np.asarray(w) for w in jax.jit(
+        lambda *a: lpc2w33_scan(*a, hist=hist))(*jargs)]
+    want_k = lpc2w33_reconstruct_inline(
+        *jargs, lanes=n, hist=hist, unroll=8, interpret=True)
+    for a, b in zip(want_k, want):
+        np.testing.assert_array_equal(np.asarray(a), b)
+
+    args = (_t(rows), _t(cf), _t(shift), _t(order))
+    for got in (lpc2w33_reconstruct_ref(*args),
+                lpc2w33_reconstruct(*args)):
+        for a, b in zip(split_i64(got), want):
+            np.testing.assert_array_equal(a.numpy(), b)
+
+
 @pytest.mark.parametrize("kernel", ["lpc2w", "lpc2w33"])
 def test_lpc2w_strided_column_slice(kernel):
     """Each wrapper takes a class's lane slice of the wider rows array

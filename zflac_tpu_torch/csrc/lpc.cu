@@ -4,12 +4,11 @@
 // lpc replaces the Pallas kernel zflac_tpu/ops/lpc.py
 // lpc_reconstruct_inline (K6, body _lpc_kernel), which the rows engine
 // runs on the int32 `lpc` class (zflac_tpu/runtime/reconstruct.py
-// _lpc_pallas). lpc64 is the same source instantiated at int64: it
-// serves what the JAX rows engine computes with the XLA scan _lpc_scan
-// in int64 (every LPC class of a 17-32-bit stream, and the `lpc_wide`
-// class of a 16-bit one). That scan is not a Pallas kernel; the
-// instantiation exists because a plain loop of B steps would cost
-// thousands of launches per call.
+// _lpc_pallas). lpc64 is the same kernel at int64: it serves what the
+// JAX rows engine computes with the XLA scan _lpc_scan in int64 (every
+// LPC class of a 17-32-bit stream, and the `lpc_wide` class of a 16-bit
+// one). That scan is not a Pallas kernel; the kernel exists because a
+// plain loop of B steps would cost thousands of launches per call.
 //
 // Input: rows [B, n] (warm-up samples at t < order, residuals after;
 // any row stride), int32 (lpc) or int64 (lpc64); coeffs [32, n] int32
@@ -19,129 +18,121 @@
 //   out[t] = rows[t] + ((sum_j X[t+j] * coeffs[j]) >> shift)  (t >= order)
 //   out[t] = rows[t]                                          (t < order)
 // where X is the output preceded by 32 zeros. Sums wrap in the type.
+// The right shift is arithmetic, with the amount read as unsigned and
+// kept below the width: any amount XLA would take as >= 32 (int32) or
+// >= 64 (int64) gives the sign fill there, and the clamp to 31 or 63
+// gives it here. This is the rule of the scan's right_shift, not
+// lpc2w33's (whose amounts >= 32 follow the JAX pair math). The scan
+// writes the 5-bit shift field, 0..31.
 //
-// The direct form above is computed in the transposed form of
-// csrc/lpc2.cu: a pipeline P[32] where P[r] holds the partial
-// prediction for time t+1+r from every sample produced so far, with
-// c[r] = coeffs[31 - r] multiplying the sample r+1 steps back. Per step
-// pred = P[0] >> shift, out = res + pred (t >= order), then
-// P = shift_up(P) + c * out. Sums with wraparound are associative, so
-// the reordered sum equals the direct form's index-order sum bit for
-// bit. Sums and products run unsigned (wrapping, defined in C++); the
-// right shift is arithmetic on the signed type, with the amount read as
-// unsigned and kept below the width: any amount XLA would take as
-// >= 32 (int32) or >= 64 (int64) gives the sign fill there, and the
-// clamp to 31 or 63 gives it here. This is the rule of the scan's
-// int64 right_shift, not lpc2w33's (whose amounts >= 32 follow the JAX
-// pair math). The scan writes the 5-bit shift field, 0..31.
+// The direct form is computed in the transposed form of lpc_steps.cuh,
+// with c[r] = coeffs[31 - r] multiplying the sample r+1 steps back;
+// wrapping sums in another order are the same sums bit for bit.
 //
-// What bounds it on the H100: the serial chain, not bytes. Each
-// subframe is one thread that walks all B time steps; bench16's class
-// has n = 2048 subframes (64 warps for 132 SMs) and B = 4096 dependent
-// steps. The design is lpc2's: P and c live in registers (every index
-// is static), residuals are loaded in unrolled groups of 8 with the
-// next group issued before the current one is consumed, so the loads
-// sit off the chain, and loads of rows[t, s] and stores of out[t, s]
-// coalesce across s. The TPU kernel's lane constraints (n a multiple of
-// the lane block, the VMEM budget behind B <= 4096) have no counterpart:
-// any n, any B that is a multiple of 8.
+// What bounds it on the H100: the serial chain of each subframe and
+// the instructions one warp issues for it, not bytes. bench16's class
+// has n = 2048 subframes (64 warps for 132 SMs), bench24's 1024 and
+// bench32ms's 512, over B = 4096 dependent steps, so each SM runs one
+// warp and nothing hides its stalls. Reading each input byte and
+// writing each output byte once takes 0.020 ms at 3.35 TB/s on each.
 //
-// Predicted before the first card run: the chain per step is as long as
-// lpc2's (a shift, an add, the multiply-add into P[0]); the 32
-// multiply-adds a step are off the chain and, with one warp on an SM,
-// about 32 issue cycles. So lpc at about lpc2's 85-88 ns per step
-// (bench16's class, 2048 lanes, B 4096: ~0.36 ms), and lpc64, whose
-// multiply-adds are three or four instructions each and whose chain
-// adds a 64-bit add and shift, at ~110-130 ns per step (bench24's class,
-// 1024 lanes: ~0.5 ms).
+// The design: lpc2's ring (lpc_ring.cuh), residuals copied into 3
+// shared-memory stages of 128 steps by cp.async and read back ahead of
+// the chain into registers; the warm-up select only in a stage that
+// holds some lane's warm-up; outputs stored as they are made. The
+// step is lpc2's at int32 (lpc_steps::Lpc2Step: the same wrap, the same
+// clamp to 31, the same warm-up rule) and at int64 the step lpc2w33
+// runs (lpc_steps::Int64Step) with XLA's clamp to 63, whose shift is
+// as short as the plain one, so no warp needs another form.
+// Each warp runs the smallest history of 8, 16 or 32 that covers the
+// highest coefficient row any of its lanes has nonzero: one
+// warp-uniform branch into three instances. Dropped rows are zero, so
+// this is exact for any coefficients; the streams' order-8 classes run
+// 8 taps a step instead of 32 (the earlier kernel ran 32 for every
+// class, with loads issued only 8 steps ahead of the chain).
 //
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W, over two runs: lpc
-// 93.4-99.6 ns per step, lpc64 216.7-219.1 ns, twice the prediction;
-// ptxas: 96 and 188 registers, no spills. With one warp per SM, lpc64's
-// ~4 instructions per 64-bit multiply-add may bound it on issue rather
-// than on the chain; not yet read from the SASS.
+// In the SASS (sm_90a; python3 -m zflac_tpu_torch.tools.kernel_sass) a
+// step issues about 15 / 23 / 39 instructions at hist 8 / 16 / 32 for
+// lpc, as lpc2, and about 40 / 72 / 137 for lpc64 (lpc_steps.cuh says
+// why a 64-bit tap is four). ptxas: 168 registers for lpc, 254 for
+// lpc64 (its hist-32 instance sets the count), no spills. Measured on
+// an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py, CUDA events):
+// lpc 22.8 ns a step on bench16's rows class (hist 8), 48.7 at hist
+// 32; lpc64 52.6 ns on bench24's class, 54.3 on bench32ms's and on
+// bench16's safe_lpc class (all hist 8), 179.5 at hist 32. The earlier
+// kernel took 88.2-92.4 ns (lpc) and 216.0-218.1 ns (lpc64) on the
+// same card and classes.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lpc_ring.cuh"
+#include "lpc_steps.cuh"
 
 namespace {
 
-constexpr int kHist = 32;
-constexpr int kUnroll = 8;
+constexpr int kRows = 32;  // coefficient rows: a 32-sample history
 
-template <typename T>
-struct Unsigned;
-template <>
-struct Unsigned<int32_t> {
-  using type = uint32_t;
-};
-template <>
-struct Unsigned<int64_t> {
-  using type = uint64_t;
-};
+template <int HIST>
+using Int32Step = lpc_steps::Lpc2Step<HIST>;
+template <int HIST>
+using Int64Step = lpc_steps::Int64Step<HIST, lpc_steps::Shift::kClamp63>;
 
-template <typename T>
-__global__ void lpc_kernel(const T* __restrict__ rows, int ld_rows,
-                           const int32_t* __restrict__ coeffs, int ld_cf,
-                           const int32_t* __restrict__ shift,
-                           const int32_t* __restrict__ order,
-                           T* __restrict__ out, int b, int n) {
-  using U = typename Unsigned<T>::type;
-  constexpr uint32_t kBits = 8 * sizeof(T);
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n) return;
-  int32_t c[kHist];
-  U P[kHist];
-#pragma unroll
-  for (int r = 0; r < kHist; ++r) {
-    c[r] = __ldg(coeffs + (size_t)(kHist - 1 - r) * ld_cf + s);
-    P[r] = 0;
-  }
-  const uint32_t sh_u = (uint32_t)__ldg(shift + s);
-  const int sh = sh_u < kBits ? (int)sh_u : (int)kBits - 1;
-  const int ord = __ldg(order + s);
-  const T* in = rows + s;
-  T* o = out + s;
-
-  T cur[kUnroll], nxt[kUnroll];
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u) cur[u] = __ldg(in + (size_t)u * ld_rows);
-  for (int t0 = 0; t0 < b; t0 += kUnroll) {
-    if (t0 + kUnroll < b) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        nxt[u] = __ldg(in + (size_t)(t0 + kUnroll + u) * ld_rows);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 + u;
-      const T pred = ((T)P[0]) >> sh;
-      const U v = t >= ord ? (U)cur[u] + (U)pred : (U)cur[u];
-      o[(size_t)t * n] = (T)v;
-#pragma unroll
-      for (int r = 0; r < kHist - 1; ++r) P[r] = P[r + 1] + (U)(T)c[r] * v;
-      P[kHist - 1] = (U)(T)c[kHist - 1] * v;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
-  }
+// The ring at history `hist` (8, 16 or 32, uniform across the warp)
+// with the step Step<hist>.
+template <template <int> class Step, typename T>
+__device__ __forceinline__ void run_hist(int hist, const int32_t* c,
+                                         uint32_t sh_u, int ord,
+                                         const T* rows, int ld, T* out,
+                                         int b, int n, T* ring) {
+  if (hist == 8)
+    lpc_ring::run<Step<8>>(c, sh_u, ord, rows, ld, out, b, n, ring);
+  else if (hist == 16)
+    lpc_ring::run<Step<16>>(c, sh_u, ord, rows, ld, out, b, n, ring);
+  else
+    lpc_ring::run<Step<32>>(c, sh_u, ord, rows, ld, out, b, n, ring);
 }
 
-// One warp per block, as lpc2: the few subframes spread over as many SMs
-// as possible.
+template <typename T>
+__global__ void __launch_bounds__(lpc_ring::kLanes, 1)
+    lpc_kernel(const T* __restrict__ rows, int ld_rows,
+               const int32_t* __restrict__ coeffs, int ld_cf,
+               const int32_t* __restrict__ shift,
+               const int32_t* __restrict__ order, T* __restrict__ out,
+               int b, int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  const int sc = min((int)(blockIdx.x * lpc_ring::kLanes + threadIdx.x),
+                     n - 1);
+  // The lane's coefficients, c[r] for the sample r+1 back, and whether
+  // any is nonzero past row 8 or past row 16.
+  int32_t c[kRows];
+  bool past8 = false, past16 = false;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    c[r] = __ldg(coeffs + (size_t)(kRows - 1 - r) * ld_cf + sc);
+    if (r >= 16)
+      past16 = past16 || c[r] != 0;
+    else if (r >= 8)
+      past8 = past8 || c[r] != 0;
+  }
+  const uint32_t sh_u = (uint32_t)__ldg(shift + sc);
+  const int ord = __ldg(order + sc);
+  const unsigned all = 0xFFFFFFFFu;
+  const int hist = __any_sync(all, past16)  ? 32
+                   : __any_sync(all, past8) ? 16
+                                            : 8;
+  if constexpr (sizeof(T) == 4)
+    run_hist<Int32Step>(hist, c, sh_u, ord, rows, ld_rows, out, b, n, ring);
+  else
+    run_hist<Int64Step>(hist, c, sh_u, ord, rows, ld_rows, out, b, n, ring);
+}
+
 template <typename T>
 int launch(const void* rows, int ld_rows, const void* coeffs, int ld_cf,
            const void* shift, const void* order, void* out, int b, int n,
            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (b <= 0 || b % kUnroll != 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  const int threads = 32;
-  const int blocks = (n + threads - 1) / threads;
-  lpc_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const T*)rows, ld_rows, (const int32_t*)coeffs, ld_cf,
-      (const int32_t*)shift, (const int32_t*)order, (T*)out, b, n);
-  return (int)cudaGetLastError();
+  return lpc_ring::launch<T>(lpc_kernel<T>, b, n, (cudaStream_t)stream, rows,
+                             ld_rows, coeffs, ld_cf, shift, order, out);
 }
 
 }  // namespace

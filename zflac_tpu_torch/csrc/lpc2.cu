@@ -44,7 +44,8 @@
 // through. And the chain is cut to two instructions:
 // P[0]' = P[1] + c0 * (res + pred) is computed as
 // (P[1] + c0 * res) + c0 * pred (equal mod 2^32), whose first sum is
-// ready before pred is.
+// ready before pred is. The step (Lpc2Step, lpc_steps.cuh) is K6 lpc's
+// too (csrc/lpc.cu).
 //
 // In the SASS (sm_90a; python3 -m zflac_tpu_torch.tools.kernel_sass)
 // one step of the
@@ -58,33 +59,9 @@
 // tap adds an IMAD (PERF.md §6 has the times).
 
 #include "lpc_ring.cuh"
+#include "lpc_steps.cuh"
 
 namespace {
-
-template <int HIST>
-struct Lpc2Step {
-  uint32_t c[HIST];
-  uint32_t P[HIST];
-  int sh;
-  int ord;
-
-  // One step: the output at time t from its residual (or warm-up).
-  template <bool WARM>
-  __device__ __forceinline__ int32_t run(int32_t res, int t) {
-    // P[0]' = P[1] + c0 * (res + pred) = (P[1] + c0 * res) + c0 * pred
-    // (mod 2^32): the first sum is ready before pred, so the chain is
-    // the shift and one multiply-add.
-    const uint32_t x0 = P[1] + (uint32_t)res * c[0];
-    uint32_t pred = (uint32_t)(((int32_t)P[0]) >> sh);
-    if (WARM && t < ord) pred = 0u;
-    const uint32_t v = (uint32_t)res + pred;
-    P[0] = x0 + pred * c[0];
-#pragma unroll
-    for (int r = 1; r < HIST - 1; ++r) P[r] = P[r + 1] + v * c[r];
-    P[HIST - 1] = v * c[HIST - 1];
-    return (int32_t)v;
-  }
-};
 
 template <int HIST>
 __global__ void __launch_bounds__(lpc_ring::kLanes)
@@ -96,16 +73,12 @@ __global__ void __launch_bounds__(lpc_ring::kLanes)
   extern __shared__ __align__(16) int32_t ring[];
   const int s = blockIdx.x * lpc_ring::kLanes + threadIdx.x;
   const int sc = min(s, n - 1);
-  Lpc2Step<HIST> step;
+  int32_t c[HIST];
 #pragma unroll
-  for (int r = 0; r < HIST; ++r) {
-    step.c[r] = (uint32_t)__ldg(cfwd + (size_t)r * ld_cf + sc);
-    step.P[r] = 0u;
-  }
-  const uint32_t sh_u = (uint32_t)__ldg(shift + sc);
-  step.sh = sh_u < 32u ? (int)sh_u : 31;
-  step.ord = __ldg(order + sc);
-  lpc_ring::drive(rows, ld_rows, out, b, n, ring, step.ord, step);
+  for (int r = 0; r < HIST; ++r) c[r] = __ldg(cfwd + (size_t)r * ld_cf + sc);
+  lpc_ring::run<lpc_steps::Lpc2Step<HIST>>(
+      c, (uint32_t)__ldg(shift + sc), __ldg(order + sc), rows, ld_rows, out,
+      b, n, ring);
 }
 
 }  // namespace

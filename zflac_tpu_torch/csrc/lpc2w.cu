@@ -20,8 +20,8 @@
 // P = shift_up(P) + c * out. The TPU kernels carry P as (hi, lo) int32
 // pairs and emulate each 64-bit add and product, because Mosaic has no
 // int64; here P is uint64 in registers (wrapping, defined in C++), the
-// K4 product is one 32x32->64 multiply, and the K5 product a 64-bit
-// multiply. The pair math equals this int64 math exactly over the
+// K4 product is one 32x32->64 multiply, and the K5 product one such
+// multiply and a 32-bit one into the high word. The pair math equals this int64 math exactly over the
 // domain the host scan admits: coefficients of at most 16 bits
 // (precision field + 1), so every partial product of the TPU split is
 // exact in int32, and K5's c * hi term wraps only in the high word.
@@ -84,19 +84,37 @@
 // lane's coefficients instead of masking each prediction, so no AND
 // sits on either chain.
 //
-// K5 (lpc2w33) keeps the earlier design for now: P and c in registers
-// (76/126/186 registers at hist 8/16/32, no spills), residual loads
-// issued a group of 8 ahead, loads and stores coalesced across lanes;
-// 114.2 ns a step on bench32ms's class. The ring is queued for it.
+// K5 (lpc2w33) runs on the same ring with the int64 step of
+// lpc_steps.cuh (Int64Step), which lpc64 (csrc/lpc.cu) shares. Its
+// earlier kernel, P and c in registers with residual loads issued 8
+// steps ahead, took 101.8-110.8 ns a step on bench32ms's class: at that
+// pace 8 steps cover less than one HBM round trip. Its outputs are
+// int64 and a 33-bit side channel's sums pass 2^51, so lpc2w's float64
+// step is not exact here. The int64 step instead splits each sample v
+// into its low word read as signed and a high word h
+// (lpc_steps::split), so that a tap c * v is one signed 32x32->64
+// product and one 32-bit product into the high word, and it picks its
+// shift form per warp, as lpc2w picks its step form: a warp whose
+// amounts all lie in 0..31 shifts with two funnel shifts and no mask;
+// any other warp runs the JAX rule (sign fill of the high word, zero
+// low word for amounts >= 32). Its ring is 96 KB of dynamic shared
+// memory a block (two blocks fit an SM), read 32 steps ahead at hist
+// 8, 16 at hist 16 and 8 at hist 32 (lpc_ring.cuh). In the SASS a step
+// issues about 40 / 72 / 137 instructions at hist 8 / 16 / 32 (a LOP3
+// more in the JAX-rule form); ptxas gives 216 / 168 / 254 registers,
+// no spills. Measured on an NVIDIA H100 80GB HBM3 at 700.00 W
+// (chip_smoke.py, CUDA events): 53.1 ns a step on bench32ms's class
+// ([4096, 512], hist 8), 53.0-55.3 on the 8 chunks decode_to_device
+// reconstructs ([4096, 128]), 171.8 at hist 32; the earlier kernel's
+// 101.8-110.8 were on the same card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "lpc_ring.cuh"
+#include "lpc_steps.cuh"
 
 namespace {
-
-constexpr int kUnroll = 8;
 
 // (u)int64 = (int32) a * (int32) b + c: one signed 32x32->64 multiply
 // (the product of two sign-extended int64 compiles to IMAD.WIDE.U32
@@ -110,6 +128,7 @@ __device__ __forceinline__ uint64_t mad_wide(int32_t a, int32_t b,
 
 template <int HIST>
 struct Lpc2wStep {
+  static constexpr int kHist = HIST;
   int32_t c[HIST];
   uint64_t P[HIST];
   int sh;
@@ -139,6 +158,7 @@ struct Lpc2wStep {
 // word of acc >> sh, the int64 step's prediction.
 template <int HIST>
 struct Lpc2wF64Step {
+  static constexpr int kHist = HIST;
   double c[HIST];
   double P[HIST];
   double scale;  // 2^-sh
@@ -205,74 +225,30 @@ __global__ void __launch_bounds__(lpc_ring::kLanes)
 }
 
 template <int HIST>
-__global__ void lpc2w33_kernel(const int64_t* __restrict__ rows,
-                               int ld_rows,
-                               const int32_t* __restrict__ cfwd, int ld_cf,
-                               const int32_t* __restrict__ shift,
-                               const int32_t* __restrict__ order,
-                               int64_t* __restrict__ out, int b, int n) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n) return;
+__global__ void __launch_bounds__(lpc_ring::kLanes, 1)
+    lpc2w33_kernel(const int64_t* __restrict__ rows, int ld_rows,
+                   const int32_t* __restrict__ cfwd, int ld_cf,
+                   const int32_t* __restrict__ shift,
+                   const int32_t* __restrict__ order,
+                   int64_t* __restrict__ out, int b, int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int64_t* ring = reinterpret_cast<int64_t*>(smem);
+  const int sc = min((int)(blockIdx.x * lpc_ring::kLanes + threadIdx.x),
+                     n - 1);
   int32_t c[HIST];
-  uint64_t P[HIST];
 #pragma unroll
-  for (int r = 0; r < HIST; ++r) {
-    c[r] = __ldg(cfwd + (size_t)r * ld_cf + s);
-    P[r] = 0u;
-  }
-  const uint32_t sh_u = (uint32_t)__ldg(shift + s);
-  const int sh = sh_u < 32u ? (int)sh_u : 63;
-  const uint64_t keep = sh_u < 32u ? ~0ull : 0xFFFFFFFF00000000ull;
-  const int ord = __ldg(order + s);
-  const int64_t* in = rows + s;
-  int64_t* o = out + s;
-
-  int64_t cur[kUnroll], nxt[kUnroll];
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u) cur[u] = __ldg(in + (size_t)u * ld_rows);
-  for (int t0 = 0; t0 < b; t0 += kUnroll) {
-    if (t0 + kUnroll < b) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        nxt[u] = __ldg(in + (size_t)(t0 + kUnroll + u) * ld_rows);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t0 + u;
-      const uint64_t pred = (uint64_t)((int64_t)P[0] >> sh) & keep;
-      const uint64_t v =
-          t >= ord ? (uint64_t)cur[u] + pred : (uint64_t)cur[u];
-      o[(size_t)t * n] = (int64_t)v;
-#pragma unroll
-      for (int r = 0; r < HIST - 1; ++r)
-        P[r] = P[r + 1] + (uint64_t)(int64_t)c[r] * v;
-      P[HIST - 1] = (uint64_t)(int64_t)c[HIST - 1] * v;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) cur[u] = nxt[u];
-  }
-}
-
-template <typename T>
-using Kernel = void (*)(const T*, int, const int32_t*, int, const int32_t*,
-                        const int32_t*, T*, int, int);
-
-// K5's launch: one warp per block, so the few lanes spread over as
-// many SMs as possible.
-template <typename T>
-int launch(Kernel<T> kern, const void* rows, int ld_rows, const void* cfwd,
-           int ld_cf, const void* shift, const void* order, void* out, int b,
-           int n, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (kern == nullptr || b <= 0 || b % kUnroll != 0 || n <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int threads = 32;
-  const int blocks = (n + threads - 1) / threads;
-  kern<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const T*)rows, ld_rows, (const int32_t*)cfwd, ld_cf,
-      (const int32_t*)shift, (const int32_t*)order, (T*)out, b, n);
-  return (int)cudaGetLastError();
+  for (int r = 0; r < HIST; ++r) c[r] = __ldg(cfwd + (size_t)r * ld_cf + sc);
+  const uint32_t sh_u = (uint32_t)__ldg(shift + sc);
+  const int ord = __ldg(order + sc);
+  using lpc_steps::Int64Step;
+  using lpc_steps::Shift;
+  if (__all_sync(0xFFFFFFFFu, sh_u < 32u))
+    lpc_ring::run<Int64Step<HIST, Shift::kPlain>>(c, sh_u, ord, rows,
+                                                  ld_rows, out, b, n, ring);
+  else
+    lpc_ring::run<Int64Step<HIST, Shift::kHighSign>>(c, sh_u, ord, rows,
+                                                     ld_rows, out, b, n,
+                                                     ring);
 }
 
 }  // namespace
@@ -306,10 +282,23 @@ extern "C" int zft_lpc2w33(const void* rows, int ld_rows, const void* cfwd,
                            int ld_cf, const void* shift, const void* order,
                            void* out, int b, int n, int hist, int device,
                            void* stream) {
-  const Kernel<int64_t> kern = hist == 8    ? lpc2w33_kernel<8>
-                               : hist == 16 ? lpc2w33_kernel<16>
-                               : hist == 32 ? lpc2w33_kernel<32>
-                                            : nullptr;
-  return launch<int64_t>(kern, rows, ld_rows, cfwd, ld_cf, shift, order, out,
-                         b, n, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (hist) {
+    case 8:
+      return lpc_ring::launch<int64_t>(lpc2w33_kernel<8>, b, n, st, rows,
+                                       ld_rows, cfwd, ld_cf, shift, order,
+                                       out);
+    case 16:
+      return lpc_ring::launch<int64_t>(lpc2w33_kernel<16>, b, n, st, rows,
+                                       ld_rows, cfwd, ld_cf, shift, order,
+                                       out);
+    case 32:
+      return lpc_ring::launch<int64_t>(lpc2w33_kernel<32>, b, n, st, rows,
+                                       ld_rows, cfwd, ld_cf, shift, order,
+                                       out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

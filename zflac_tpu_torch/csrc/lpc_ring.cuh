@@ -1,18 +1,39 @@
 // A ring of shared-memory stages, filled by asynchronous copies, that
-// feeds one LPC recurrence per thread (lpc2.cu, lpc2w.cu).
+// feeds one LPC recurrence per thread (lpc2.cu, lpc2w.cu, lpc.cu; the
+// steps are in lpc_steps.cuh).
+//
+// The kernels on it replace the Pallas kernels K2 lpc2, K4 lpc2w, K5
+// lpc2w33 and K6 lpc (zflac_tpu/ops/lpc2.py, lpc2w.py, lpc.py), and
+// lpc64 the XLA scan _lpc_scan at int64 (zflac_tpu/runtime/
+// reconstruct.py). What bounds each on the H100 is one lane's serial
+// chain of B steps and the instructions its warp issues, alone on its
+// SM (the bench classes have 4 to 64 warps for 132 SMs), not bytes:
+// reading each input and writing each output once takes 0.010-0.040 ms
+// a launch at 3.35 TB/s. SASS instructions a step at hist 8 (python3
+// -m zflac_tpu_torch.tools.kernel_sass), and ns a step on the bench
+// classes, NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py): lpc2
+// and lpc, int32 step, about 15, 23.8 and 22.8 ns; lpc2w, float64
+// step, about 15, 32.6 ns; lpc2w33 and lpc64, int64 step, about 40,
+// 52.6-54.3 ns. So an integer step costs about 1.3-1.5 ns for each
+// instruction it issues: what a step issues sets its time more than
+// its chain does.
 //
 // Each block is one warp and owns kLanes consecutive lanes (subframes)
 // of a time-major array rows [B, n] (any row stride, any base: lane
 // slices of a class start at arbitrary columns). The warp copies its
 // lanes' residuals into the ring, kT time steps a stage, kS stages in
 // all, with cp.async copies issued (kS - 1) * kT steps ahead of the
-// recurrence: at the 20-40 ns a step takes, several HBM round trips
+// recurrence: at the 20-60 ns a step takes, several HBM round trips
 // (~1 us) of loads are in flight, and the warp no longer waits on
 // device memory. Each thread then reads its lane's residuals from
-// shared memory a group of kU steps ahead into registers, so the
-// shared-memory latency sits off the chain too. Longer groups cost
-// fewer loop instructions a step; 32 steps of hist 32 still fit the
-// instruction cache.
+// shared memory a group of ahead<T, HIST>() steps ahead into registers,
+// so the shared-memory latency sits off the chain too. Longer groups
+// cost fewer loop instructions a step; 32 steps of hist 32 still fit
+// the instruction cache. At int64 a group holds two registers a step
+// twice over (this group and the next), beside 2 * HIST for P, so its
+// groups are 32 steps at hist 8, 16 at hist 16 and 8 at hist 32, the
+// most that fit the 255 registers a thread may have (timed on the
+// H100: 32 steps beat 16 at hist 8, and 8 beat 16 at hist 32).
 //
 // Why cp.async and not TMA: a lane slice's base address and row stride
 // need not be 16-byte aligned (the class slices of runtime/device.py
@@ -40,9 +61,20 @@ namespace lpc_ring {
 constexpr int kLanes = 32;  // one warp per block, one lane per thread
 constexpr int kT = 128;     // time steps per stage
 constexpr int kS = 3;       // stages in the ring
-constexpr int kU = 32;      // steps read ahead from shared memory
 constexpr int kTail = 8;    // steps a group in a stage's rest (B % 8 == 0)
 
+// Steps read ahead from shared memory, for elements of type T and a
+// step of HIST taps.
+template <typename T, int HIST>
+__host__ __device__ constexpr int ahead() {
+  return sizeof(T) == 4 || HIST <= 8 ? 32 : HIST <= 16 ? 16 : 8;
+}
+
+// 48 KB at int32 and 96 KB at int64: two int64 blocks still fit the
+// 227 KB of shared memory an SM gives its blocks. The kernels with an
+// int64 step declare __launch_bounds__(kLanes, 1): without the one
+// block an SM, ptxas held their hist-32 instances to 168 registers and
+// spilled, for an occupancy these launches of a few warps never reach.
 template <typename T>
 constexpr int ring_bytes() {
   return kS * kT * kLanes * (int)sizeof(T);
@@ -75,6 +107,7 @@ __device__ __forceinline__ void wait_oldest() {
 template <typename T, typename Step>
 __device__ __forceinline__ void drive(const T* rows, int ld, T* out, int b,
                                       int n, T* ring, int ord, Step& step) {
+  constexpr int kU = ahead<T, Step::kHist>();
   const int lane = threadIdx.x;
   const int s0 = blockIdx.x * kLanes;
   const T* col = rows + min(s0 + lane, n - 1);
@@ -173,6 +206,18 @@ __device__ __forceinline__ void drive(const T* rows, int ld, T* out, int b,
       steps(std::integral_constant<int, kTail>{}, r, t0 + g, warm);
     }
   }
+}
+
+// Runs a step of lpc_steps.cuh over this thread's lane, from the lane's
+// coefficients c[0..Step::kHist), its shift amount as stored and its
+// order.
+template <typename Step, typename T>
+__device__ __forceinline__ void run(const int32_t* c, uint32_t sh_u, int ord,
+                                    const T* rows, int ld, T* out, int b,
+                                    int n, T* ring) {
+  Step step;
+  step.init(c, sh_u, ord);
+  drive(rows, ld, out, b, n, ring, ord, step);
 }
 
 // Grid and shared memory of a launch over n lanes; checks the shape

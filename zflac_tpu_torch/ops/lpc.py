@@ -10,7 +10,9 @@ with X the output preceded by 32 zeros, sums wrapping in the rows'
 dtype and an arithmetic right shift whose amount, read as unsigned, is
 taken as the width minus one when it reaches the width (XLA's sign
 fill for such amounts). int32 rows go to the lpc kernel, int64 rows to
-lpc64.
+lpc64. Both kernels run each warp of 32 subframes with as many taps
+(8, 16 or 32) as its highest nonzero coefficient row needs; the rows
+dropped are zero, so the result is the same for any coefficients.
 """
 
 from __future__ import annotations

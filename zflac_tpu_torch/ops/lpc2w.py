@@ -13,12 +13,13 @@ rows in and out, pred = acc >> shift in all 64 bits.
 The JAX package carries the accumulator as (hi, lo) int32 pairs
 because the TPU has no int64; here it is int64 (the lpc2w kernel runs
 it in float64 where every coefficient of a warp fits 16 bits, which is
-exact there; csrc/lpc2w.cu). The two agree bit for bit wherever each
-partial product of the pair split is exact in int32, which holds for
-every coefficient the host scan admits (at most 16 bits). Shift
-amounts follow the JAX step math for every uint32 value (the scan
-writes 0..31): for amounts >= 32 lpc2w's pred is 0, and lpc2w33's is
-the sign fill of the high word with a zero low word.
+exact there, csrc/lpc2w.cu; lpc2w33's kernel runs the int64 step it
+shares with lpc64, csrc/lpc_steps.cuh). The two agree bit for bit
+wherever each partial product of the pair split is exact in int32,
+which holds for every coefficient the host scan admits (at most 16
+bits). Shift amounts follow the JAX step math for every uint32 value
+(the scan writes 0..31): for amounts >= 32 lpc2w's pred is 0, and
+lpc2w33's is the sign fill of the high word with a zero low word.
 """
 
 from __future__ import annotations
