@@ -50,7 +50,42 @@ build/zflac_tpu_torch/, then:
      on a corrupted corpus stream (against the same call on the CPU);
   7. times the device reconstruction of each bench chunk, the whole
      decode_to_device call on bench16 and bench24, and decode(engine=
-     "torch") on both, end to end and in its phases.
+     "torch") on both, end to end and in its phases;
+  8. faults: empty shapes (B == 0, n == 0, NGp == 0, Fp == 0) through
+     every kernel wrapper on the card give the plain versions' empty
+     results without a launch; a decode leaves the thread's current
+     CUDA device as it found it, and, on a host with several cards, a
+     decode on cuda:1 from a thread on cuda:0 equals the cuda:0 result;
+  9. sharded: decode_to_device_sharded of each bench stream over every
+     visible card (over four slots on cuda:0 when there is one), with
+     the launch counters reset before and read after (rice16, the LPC
+     kernel and packtail must equal the live chunks times their
+     classes), sharded_to_host against the encoder's input with the
+     MD5 verified, the completeness count against the block sizes, one
+     case of three or more rounds, and every kernel against its plain
+     version on each chunk of each of these calls (their own chunk
+     sizes and union geometry); reconstruct_sharded on each bench
+     stream's rows plan against the single-device reconstruction
+     (lpc / lpc64 counted, and held against the plain version on each
+     device's slice of the plan); then the sharded decode of bench16 and
+     bench24 timed on the host clock (median of 5), in turns with
+     decode_to_device on one device, beside the time of step 7;
+ 10. longstream: decode_longstream of bench16 and bench24 in 4 shards
+     (launches counted; lpc / lpc64 against the plain version on each
+     shard's plan);
+ 11. distributed: two worker processes that share cuda:0, over gloo
+     (python3 -m zflac_tpu_torch.parallel.distributed ... pack2 cuda:0,
+     then ... longstream cuda:0), on bench16: both outputs must equal
+     the encoder's input, and the launch counts each worker prints
+     must be those of its chunk or shard; the kernels are held against
+     their plain versions on the two workers' chunks and plans;
+ 12. cli: python3 -m zflac_tpu_torch.cli decode, verify and bench on
+     bench16 as three processes at once (the WAV's payload must equal
+     the encoder's input), and verify once more through cli.main in
+     this process with the launches counted;
+ 13. profile: one decode of bench16 in a process with
+     ZFLAC_TPU_PROFILE set; the trace file must hold the region's label
+     and one of the port's kernels.
 
 Any failure raises, and the exit code is then not 0. With no CUDA
 device it exits 1 before doing anything. The last lines are one JSON
@@ -63,13 +98,16 @@ library_ms is null), the nvidia-smi line, and {"ok": true, "device":
 
 from __future__ import annotations
 
+import ast
 import json
 import multiprocessing
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
@@ -77,7 +115,7 @@ import numpy as np
 import torch
 
 import zflac_tpu_torch
-from zflac_tpu_torch import _kernels
+from zflac_tpu_torch import _kernels, cli
 from zflac_tpu_torch import format as fmt
 from zflac_tpu_torch.bitio import BitReader
 from zflac_tpu_torch.encoder import EncoderConfig, encode
@@ -86,6 +124,13 @@ from zflac_tpu_torch.index import build_plan, native_indexer
 from zflac_tpu_torch.index.native_indexer import (decode_cpu_native,
                                                   pack2_range)
 from zflac_tpu_torch.oracle import parse_metadata
+from zflac_tpu_torch.parallel import make_mesh, reconstruct_sharded
+from zflac_tpu_torch.parallel.distributed import union_chunks
+from zflac_tpu_torch.parallel.longstream import (decode_longstream,
+                                                 shard_index)
+from zflac_tpu_torch.parallel.shard import (decode_to_device_sharded,
+                                            local_arrays, shard_plan,
+                                            sharded_to_host)
 from zflac_tpu_torch.result import container_dtype
 from zflac_tpu_torch.testing import correlated_stereo, make_corpus
 from zflac_tpu_torch.ops.lpc import (KERNEL as LPC_ROWS_KERNEL,
@@ -184,13 +229,18 @@ def bench_pcm(name: str) -> np.ndarray:
     return correlated_stereo(n, bps, seed=7)
 
 
+def bench_path(name: str) -> str:
+    n, bps, mode, _ = BENCH[name]
+    return os.path.join(
+        CACHE, f"bench_{n}_{bps}bit_{BENCH_BLOCK}"
+        f"{'_' + mode if mode else ''}.flac")
+
+
 def bench_stream(name: str) -> bytes:
     """Bench stream `name`, from its cache file when present, else
     encoded and cached."""
     n, bps, mode, _ = BENCH[name]
-    path = os.path.join(
-        CACHE, f"bench_{n}_{bps}bit_{BENCH_BLOCK}"
-        f"{'_' + mode if mode else ''}.flac")
+    path = bench_path(name)
     if os.path.exists(path):
         with open(path, "rb") as f:
             return f.read()
@@ -301,28 +351,32 @@ def kernel_checks(dev, diff: Diff, what: str, ck) -> dict:
                 lpc_name=lpc_name, stack=stack, tail=tail, cb=cb)
 
 
-def rows_lpc_checks(dev, diff: Diff, what: str, data: bytes,
-                    safe_lpc: bool = False) -> dict:
-    """lpc / lpc64 against their plain version on the LPC classes of the
-    stream's rows-engine plan, padded and gathered as the rows engine
-    does it (the lpc class at the stream's dtype, lpc_wide widened to
-    int64). Returns class name -> kernel arguments."""
-    plan = build_plan(data)
-    if safe_lpc:
-        plan.wide = plan.kind == 3
-    arrays, class_idx = rd.pad_plan(plan)
-    t, ci = rd.plan_to_torch(arrays, class_idx, dev)
+def class_lpc_checks(diff: Diff, what: str, t: dict, lists: dict) -> dict:
+    """lpc / lpc64 against their plain version on plan tensors `t`
+    (rows, coeffs, shift, order), gathered by the padded class lists
+    `lists` ("lpc" at the rows' dtype, "lpc_wide" widened to int64) as
+    reconstruct_core gathers them. Returns class name -> kernel
+    arguments."""
     out = {}
-    for name in ("lpc", "lpc_wide"):
-        if name not in ci:
-            continue
+    for name, idx in lists.items():
         args = lpc_class_inputs(t["rows"], t["coeffs"], t["shift"],
-                                t["order"], ci[name],
-                                widen=name == "lpc_wide")
+                                t["order"], idx, widen=name == "lpc_wide")
         diff.check(LPC_ROWS_KERNEL[args[0].dtype], f"{what} {name}",
                    lpc_reconstruct(*args), lpc_reconstruct_ref(*args))
         out[name] = args
     return out
+
+
+def rows_lpc_checks(dev, diff: Diff, what: str, plan,
+                    safe_lpc: bool = False) -> dict:
+    """class_lpc_checks on the LPC classes of a rows-engine plan,
+    padded and uploaded as _run_reconstruct does it."""
+    if safe_lpc:
+        plan.wide = plan.kind == 3
+    arrays, class_idx = rd.pad_plan(plan)
+    t, ci = rd.plan_to_torch(arrays, class_idx, dev)
+    return class_lpc_checks(diff, what, t, {
+        name: ci[name] for name in ("lpc", "lpc_wide") if name in ci})
 
 
 # Shift amounts for the wide recurrences: every value the buffer's
@@ -637,9 +691,9 @@ def decode_check(what: str, data: bytes, want: np.ndarray,
     return dd
 
 
-def e2e_times(data: bytes, n_samples: int, line: str, what: str) -> None:
+def e2e_times(data: bytes, n_samples: int, line: str, what: str) -> float:
     """decode_to_device end to end on `data`, synchronized, median of
-    5 on the host clock, with its phase medians."""
+    5 on the host clock, with its phase medians. Returns the median."""
     walls, phases = [], []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -661,6 +715,7 @@ def e2e_times(data: bytes, n_samples: int, line: str, what: str) -> None:
         f"union re-scan {med['rescan_ms']:.3f} ms, upload + kernel "
         f"queueing {med['enqueue_ms']:.3f} ms, then waiting for the "
         f"device {med['wait_ms']:.3f} ms; on {line}")
+    return e2e
 
 
 def native_pcm(data: bytes) -> np.ndarray:
@@ -775,6 +830,456 @@ def rows_times(data: bytes, n_samples: int, line: str, what: str) -> None:
         + f" (sum {sum(med):.3f} ms); on {line}")
 
 
+# ---------------------------------------------------------------------
+# Phases 8-13: the faults repaired, and the multi-device, multi-process
+# and command-line paths.
+# ---------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# Seconds a worker, CLI or profile subprocess may take (each starts
+# Python, loads torch and the libraries and reaches the card).
+PROC_TIMEOUT = 300
+# Frames a chunk in the sharded decode's multi-round case.
+ROUND_FRAMES = 32
+# The device the worker, CLI and profile processes decode on.
+CARD = "cuda:0"
+PORT_KERNELS = ("rice16_rows_kernel", "lpc2_kernel", "lpc2w_kernel",
+                "lpc2w33_kernel", "lpc_kernel", "packtail_kernel")
+
+
+def same_empty(what: str, got, want) -> None:
+    if got.shape != want.shape or got.dtype != want.dtype or \
+            got.device != want.device or got.numel():
+        raise AssertionError(
+            f"{what}: kernel route {tuple(got.shape)} {got.dtype} on "
+            f"{got.device}, plain version {tuple(want.shape)} {want.dtype}")
+
+
+def faults_phase(dev, benches: dict) -> None:
+    """Empty shapes through every wrapper on the card; the thread's
+    current CUDA device after decodes."""
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    _kernels.launches.clear()
+    n_cases = 0
+    for B, n in ((0, 128), (128, 0), (0, 0)):
+        for name, dtype in (("lpc2", torch.int32), ("lpc2w", torch.int32),
+                            ("lpc2w33", torch.int64)):
+            args = (z(B, n, dtype=dtype), z(8, n), z(n), z(n))
+            same_empty(f"{name} B={B} n={n}", rt.LPC_KERNELS[name](*args),
+                       LPC_PLAIN[name](*args))
+            n_cases += 1
+        for dtype in (torch.int32, torch.int64):
+            args = (z(B, n, dtype=dtype), z(32, n), z(n), z(n))
+            same_empty(f"{LPC_ROWS_KERNEL[dtype]} B={B} n={n}",
+                       lpc_reconstruct(*args), lpc_reconstruct_ref(*args))
+            n_cases += 1
+    for W in (8, 16):
+        same_empty(f"rice16 W={W} NGp=0",
+                   rice16_unpack_rows(z(W, 0), z(0), Ssort=512),
+                   rice16_unpack_rows_ref(z(W, 0), z(0), Ssort=512))
+        same_empty(f"rice16_flat W={W} NG=0", rice16_unpack(z(W, 0), z(0)),
+                   rice16_unpack_ref(z(W, 0), z(0)))
+        n_cases += 2
+    for cb in (16, 8):
+        args = (z(3, 128), z(0), z(0), z(0))
+        same_empty(f"packtail Fp=0 container {cb}",
+                   packtail(*args, Fp=0, container_bits=cb),
+                   packtail_ref(*args, Fp=0, container_bits=cb))
+        n_cases += 1
+    torch.cuda.synchronize()
+    if sum(_kernels.launches.values()):
+        raise AssertionError(f"empty shapes launched kernels: "
+                             f"{dict(_kernels.launches)}")
+    say("faults", f"{n_cases} empty shapes (B == 0, n == 0, NGp == 0, "
+        "Fp == 0) through all eight wrappers on the card: the plain "
+        "versions' empty results, no launch")
+
+    data, want = benches["bench16"]
+    before = torch.cuda.current_device()
+    decode_check("faults bench16", data, want)
+    rows_decode_check("faults bench16", data, want)
+    if torch.cuda.current_device() != before:
+        raise AssertionError(
+            f"a decode moved the thread's CUDA device from {before} to "
+            f"{torch.cuda.current_device()}")
+    say("faults", f"torch.cuda.current_device() is {before} before and "
+        "after decode_to_device and decode(engine=\"torch\") on bench16")
+    if torch.cuda.device_count() < 2:
+        say("faults", "a decode on cuda:1 from a thread on cuda:0: did not "
+            "run, the host has one card")
+        return
+    torch.cuda.set_device(0)
+    dd0 = zflac_tpu_torch.decode_to_device(data, device="cuda:0")
+    dd1 = zflac_tpu_torch.decode_to_device(data, device="cuda:1")
+    r1 = zflac_tpu_torch.decode(data, engine="torch", device="cuda:1")
+    if torch.cuda.current_device() != 0:
+        raise AssertionError("a decode on cuda:1 left the thread on "
+                             f"cuda:{torch.cuda.current_device()}")
+    if dd1.chunks[0].device != torch.device("cuda", 1) or not (
+            np.array_equal(dd1.to_host().interleaved, want)
+            and np.array_equal(dd0.to_host().interleaved, want)
+            and np.array_equal(r1.interleaved, want)):
+        raise AssertionError("decode on cuda:1 differs from cuda:0")
+    say("faults", "decodes on cuda:1 from a thread on cuda:0 (both "
+        "engines): the thread stays on cuda:0, PCM equal to cuda:0's")
+
+
+def sync_mesh(mesh) -> None:
+    for d in set(mesh):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def md5_domain(want: np.ndarray, bps: int) -> np.ndarray:
+    """Normalized container samples back in the MD5 domain."""
+    shift = fmt.normalization_shift(bps)
+    return want >> shift if shift else want
+
+
+def sharded_decode_check(diff: Diff, what: str, data: bytes,
+                         want: np.ndarray, mesh, **kw) -> tuple:
+    """decode_to_device_sharded on the mesh with the counters reset
+    before and read after: host PCM equal to the encoder's input, MD5
+    verified, completeness count equal to the block sizes, and each
+    kernel launched once per live chunk and class; then each kernel
+    against its plain version on every chunk of the call, on the
+    chunk's device. Returns (meta, the launch counts, the first chunk's
+    geometry)."""
+    _kernels.launches.clear()
+    r = decode_to_device_sharded(data, mesh, **kw)
+    if r is None:
+        raise AssertionError(f"{what}: decode_to_device_sharded declined")
+    out, meta = r
+    sync_mesh(mesh)
+    got = dict(_kernels.launches)
+    bps, C = meta["bits_per_sample"], meta["channels"]
+    for rnd in out:
+        if [t.device for t in rnd] != list(mesh):
+            raise AssertionError(f"{what}: a round's tensors are not on "
+                                 "the mesh's devices in order")
+    host = sharded_to_host(out, meta)
+    if not np.array_equal(host, md5_domain(want, bps)):
+        raise AssertionError(f"{what}: sharded_to_host differs from the "
+                             "encoder input")
+    if not rt.verify_stream_md5(host, bps, meta["md5"]):
+        raise AssertionError(f"{what}: stream MD5 mismatch")
+    samples = C * sum(int(b.sum()) for b in meta["block_sizes"])
+    if int(meta["psum_samples"]) != samples or \
+            meta["psum_samples"].device != mesh[0]:
+        raise AssertionError(
+            f"{what}: completeness count {int(meta['psum_samples'])} on "
+            f"{meta['psum_samples'].device}, block sizes give {samples}")
+    # The chunks the call reconstructed: the same scan at its chunk
+    # size, which is the frame axis of its tensors.
+    br = BitReader(data)
+    info = parse_metadata(br)
+    cks = rt.stream_chunks(data, info, br.pos // 8,
+                           chunk_frames=out[0][0].shape[0])
+    live = len(meta["num_frames"])
+    if len(cks) != live or meta["rounds"] != -(-live // len(mesh)):
+        raise AssertionError(f"{what}: {live} chunks in {meta['rounds']} "
+                             f"rounds, the scan gives {len(cks)}")
+    geom = rt.Pack2Geom.of(cks[0])
+    cb = fmt.container_bits(bps)
+    expect = {"rice16": live,
+              rt.lpc_kernel(geom, cb): live * sum(
+                  name.startswith("lpc") for name, _ in geom.classes)}
+    if C == 2 and cb in (8, 16):
+        expect["packtail"] = live
+    if got != expect:
+        raise AssertionError(f"{what}: launches {got}, expected {expect} "
+                             f"({live} live chunks of classes "
+                             f"{geom.classes})")
+    for i, ck in enumerate(cks):
+        kernel_checks(mesh[i % len(mesh)], diff,
+                      f"{what} sharded chunk {i}", ck)
+    return meta, got, geom
+
+
+def geom_line(g) -> str:
+    return (f"Fp {g.Fp}, Bp {g.Bp}, Ssort {g.Ssort}, W {g.W}, NGp {g.NGp}, "
+            f"classes {g.classes}")
+
+
+def sharded_phase(diff: Diff, benches: dict, mesh, single_ms: dict,
+                  line: str, launches: dict) -> None:
+    D = len(mesh)
+    where = (f"{D} cards" if len(set(mesh)) > 1
+             else f"{D} slots on {mesh[0]}")
+    for name, (data, want) in benches.items():
+        meta, got, g = sharded_decode_check(diff, name, data, want, mesh)
+        say("sharded", f"{name}: decode_to_device_sharded over {where} -> "
+            f"sharded_to_host (MD5 verified) == encoder input; "
+            f"{len(meta['num_frames'])} chunks of {meta['num_frames']} "
+            f"frames in {meta['rounds']} rounds; completeness count "
+            f"{int(meta['psum_samples'])} == channels x block sizes; "
+            f"kernel launches {got}; every kernel == its plain version on "
+            f"each chunk ({geom_line(g)})")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    meta, got, g = sharded_decode_check(
+        diff, f"bench16, chunk_frames={ROUND_FRAMES}", *benches["bench16"],
+        mesh, chunk_frames=ROUND_FRAMES)
+    if meta["rounds"] < 3:
+        raise AssertionError(f"chunk_frames={ROUND_FRAMES} gave "
+                             f"{meta['rounds']} rounds")
+    say("sharded", f"bench16 in {len(meta['num_frames'])} chunks of "
+        f"{ROUND_FRAMES} frames, {meta['rounds']} rounds over {where}: "
+        f"bit-exact, launches {got}; every kernel == its plain version on "
+        f"each chunk ({geom_line(g)})")
+
+    for name, (data, _) in benches.items():
+        plan = build_plan(data)
+        _kernels.launches.clear()
+        pcm, total = reconstruct_sharded(plan, mesh)
+        got = dict(_kernels.launches)
+        single = rd._run_reconstruct(plan, mesh[0])
+        kernel = ROWS_PATH[name][0]
+        if not np.array_equal(pcm, single[:, :pcm.shape[1]]) or \
+                got != {kernel: D}:
+            raise AssertionError(f"reconstruct_sharded on {name}: PCM "
+                                 f"differs or launches {got}")
+        F_loc = -(-plan.num_frames // D)
+        if total != F_loc * D * pcm.shape[1]:
+            raise AssertionError(f"reconstruct_sharded on {name}: total "
+                                 f"{total}")
+        # lpc / lpc64 on each device's slice as _local_reconstruct gets
+        # it: a share of the lanes, sentinel-padded class lists.
+        arrays, smeta = shard_plan(plan, D)
+        shapes = set()
+        for d, device in enumerate(mesh):
+            t = local_arrays(arrays, smeta, d, device)
+            for args in class_lpc_checks(
+                    diff, f"{name} reconstruct_sharded device {d}", t,
+                    {cls: t[key] for key, cls in (("idx_lpc", "lpc"),
+                                                  ("idx_lpc_wide", "lpc_wide"))
+                     if key in t}).values():
+                shapes.add(f"{list(args[0].shape)} {args[0].dtype}")
+        say("sharded", f"{name}: reconstruct_sharded of the rows plan over "
+            f"{where} == _run_reconstruct on one device, PCM "
+            f"{list(pcm.shape)}, total {total}; kernel launches {got}; "
+            f"{kernel} == its plain version on each device's slice, rows "
+            f"{sorted(shapes)}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # Host-clock times drift over a run, so the two calls alternate.
+    for name in ("bench16", "bench24"):
+        data = benches[name][0]
+        walls, ones = [], []
+        for _ in range(5):
+            sync_mesh(mesh)
+            a = time.perf_counter()
+            decode_to_device_sharded(data, mesh)
+            sync_mesh(mesh)
+            b = time.perf_counter()
+            zflac_tpu_torch.decode_to_device(data, device=mesh[0]
+                                             ).synchronize()
+            walls.append((b - a) * 1e3)
+            ones.append((time.perf_counter() - b) * 1e3)
+        med = statistics.median(walls)
+        say("times", f"{name}: decode_to_device_sharded over {where} end "
+            f"to end (scan + H2D + device, synchronized): {med:.3f} ms = "
+            f"{BENCH[name][0] * 2 / med / 1e3:.1f} Msamples/s, median of "
+            f"5, host clock (runs {', '.join(f'{w:.3f}' for w in walls)}); "
+            f"decode_to_device on {mesh[0]}, each run just after a sharded "
+            f"one: {statistics.median(ones):.3f} ms (runs "
+            f"{', '.join(f'{w:.3f}' for w in ones)}), and earlier in this "
+            f"run: {single_ms[name]:.3f} ms; {torch.cuda.device_count()} "
+            f"card(s) on the host, {os.cpu_count()} host cores; on {line}")
+
+
+def shard_lpc_checks(diff: Diff, what: str, data: bytes, num_shards: int,
+                     mesh) -> list:
+    """lpc / lpc64 against their plain version on the plan of each
+    byte-range shard of the stream, on the shard's device. Returns the
+    rows' shapes."""
+    _, shards = shard_index(data, num_shards)
+    return [f"{list(a[0].shape)} {a[0].dtype}"
+            for h, (_, _, plan) in enumerate(shards)
+            for a in rows_lpc_checks(mesh[h % len(mesh)], diff,
+                                     f"{what} shard {h}", plan).values()]
+
+
+def longstream_phase(diff: Diff, benches: dict, mesh, line: str,
+                     launches: dict) -> None:
+    for name in ("bench16", "bench24"):
+        data, want = benches[name]
+        shapes = shard_lpc_checks(diff, f"{name} decode_longstream", data, 4,
+                                  mesh)
+        _kernels.launches.clear()
+        r = decode_longstream(data, 4, mesh)
+        got = dict(_kernels.launches)
+        if not np.array_equal(r.interleaved, want) or \
+                got != {ROWS_PATH[name][0]: r.stats["shards"]}:
+            raise AssertionError(f"decode_longstream on {name}: "
+                                 f"{r.stats}, launches {got}, or PCM differs")
+        walls = []
+        for _ in range(3):
+            a = time.perf_counter()
+            decode_longstream(data, 4, mesh)
+            walls.append((time.perf_counter() - a) * 1e3)
+        say("longstream", f"{name}: decode_longstream in 4 shards over "
+            f"{len(mesh)} mesh slots (MD5 verified) == encoder input; "
+            f"{r.stats}; kernel launches {got}; {ROWS_PATH[name][0]} == its "
+            f"plain version on each shard's plan, rows {shapes}; "
+            f"{statistics.median(walls):.3f} ms end to end (host PCM), "
+            f"median of 3, host clock; on {line}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+
+def run_procs(what: str, cmds: list, env: dict = None) -> list:
+    """Run the commands at once from the checkout's root; returns their
+    outputs. A non-zero return code or a timeout raises, and no process
+    is left running."""
+    env = dict(os.environ, PYTHONPATH=ROOT, **(env or {}))
+    procs = [subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PROC_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: {' '.join(c)} exited "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+    return outs
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def distributed_phase(diff: Diff, data: bytes, want: np.ndarray, tmp: str,
+                      line: str) -> None:
+    """Two worker processes sharing one card decode bench16 together,
+    through the pack2 path and through the long-stream path; each
+    prints its launch counts, which must be those of its one chunk (or
+    its one shard). Before that, each kernel is held against its plain
+    version here on the chunks and shard plans the workers make."""
+    dev = torch.device(CARD)
+    # Outside any process group, two local ranges are the two workers'
+    # ranges, and the union over them is the union the workers gather.
+    br = BitReader(data)
+    info = parse_metadata(br)
+    _, cks = union_chunks(data, info, br.pos // 8, 2)
+    if cks is None or len(cks) != 2:
+        raise AssertionError("distributed: the two ranges' pack2 scan "
+                             "declined")
+    for i, ck in enumerate(cks):
+        kernel_checks(dev, diff, f"bench16 worker {i} pack2 chunk", ck)
+    g = rt.Pack2Geom.of(cks[0])
+    cb = fmt.container_bits(info.bits_per_sample)
+    expect = {"pack2": {"rice16": 1, "packtail": 1,
+                        rt.lpc_kernel(g, cb): sum(
+                            n.startswith("lpc") for n, _ in g.classes)},
+              "longstream": {"lpc": 1}}
+    shapes = shard_lpc_checks(diff, "bench16 worker", data, 2, [dev])
+    say("distributed", f"every kernel == its plain version on the two "
+        f"workers' pack2 chunks ({geom_line(g)}) and lpc on their "
+        f"long-stream plans, rows {shapes}")
+
+    for engine in ("pack2", "longstream"):
+        outs = [os.path.join(tmp, f"{engine}{rank}.npy") for rank in (0, 1)]
+        coordinator = f"127.0.0.1:{free_port()}"
+        a = time.perf_counter()
+        logs = run_procs(f"distributed {engine}", [
+            [sys.executable, "-m", "zflac_tpu_torch.parallel.distributed",
+             bench_path("bench16"), out, coordinator, str(rank), "2", engine,
+             CARD] for rank, out in enumerate(outs)])
+        wall = time.perf_counter() - a
+        for out in outs:
+            if not np.array_equal(np.load(out), want):
+                raise AssertionError(f"distributed {engine}: {out} differs "
+                                     "from the encoder input")
+        stats = [log.strip().splitlines()[-1] for log in logs]
+        if not all(f"'engine': '{engine}-distributed'" in s_ and
+                   "'processes': 2" in s_ for s_ in stats):
+            raise AssertionError(f"distributed {engine}: {stats}")
+        counts = [ast.literal_eval(s_.split("kernel launches ")[1])
+                  for s_ in stats]
+        if counts != [expect[engine]] * 2:
+            raise AssertionError(f"distributed {engine}: the workers "
+                                 f"launched {counts}, expected "
+                                 f"{expect[engine]} each")
+        say("distributed", f"bench16, {engine}: 2 processes on {CARD} over "
+            f"gloo, both outputs == encoder input; {stats[0]} in each "
+            f"process; {wall:.1f} s "
+            f"from start to exit of both processes (host clock, Python "
+            f"and CUDA start-up included); on {line}")
+
+
+def cli_and_profile_phase(want: np.ndarray, tmp: str, line: str) -> None:
+    """The command line's decode, verify and bench on bench16, and a
+    decode under ZFLAC_TPU_PROFILE, as four processes at once."""
+    path = bench_path("bench16")
+    wav = os.path.join(tmp, "x.wav")
+    traces = os.path.join(tmp, "traces")
+    cmd = [sys.executable, "-m", "zflac_tpu_torch.cli"]
+    procs = {
+        "decode": [*cmd, "decode", path, "-o", wav, "--device", CARD],
+        "verify": [*cmd, "verify", path, "--device", CARD],
+        "bench": [*cmd, "bench", path, "--reps", "3", "--device", CARD],
+    }
+    outs = dict(zip(procs, run_procs("cli", list(procs.values()))))
+    with open(wav, "rb") as f:
+        riff = f.read()
+    if riff[:4] != b"RIFF" or riff[44:] != want.tobytes():
+        raise AssertionError("cli decode: the WAV's payload differs from "
+                             "the encoder input")
+    if "OK: MD5 verified" not in outs["verify"] or \
+            f"wrote {wav}" not in outs["decode"]:
+        raise AssertionError(f"cli: {outs}")
+    bench = json.loads(outs["bench"].strip().splitlines()[-1])
+    if bench["frames"] != BENCH["bench16"][0] // BENCH_BLOCK or \
+            not bench["median_ms"] > 0:
+        raise AssertionError(f"cli bench: {bench}")
+    say("cli", f"decode -o x.wav (payload == encoder input): "
+        f"{outs['decode'].splitlines()[0]}; verify: "
+        f"{outs['verify'].strip()}; bench --reps 3: {bench} (three CLI "
+        f"processes on the card at once); on {line}")
+
+    # The same command in this process, where the launches can be read.
+    _kernels.launches.clear()
+    rc = cli.main(["verify", path, "--device", CARD])
+    got = dict(_kernels.launches)
+    if rc != 0 or got != {"lpc": 1}:
+        raise AssertionError(f"cli verify in this process: return code {rc}, "
+                             f"launches {got}")
+    say("cli", f"verify through cli.main in this process: return code 0, "
+        f"kernel launches {got}")
+
+    code = ("import sys, zflac_tpu_torch\n"
+            "r = zflac_tpu_torch.decode(sys.argv[1], device=sys.argv[2])\n"
+            "print(r.stats)\n")
+    run_procs("profile", [[sys.executable, "-c", code, path, CARD]],
+              env={"ZFLAC_TPU_PROFILE": traces})
+    files = os.listdir(traces)
+    if len(files) != 1:
+        raise AssertionError(f"profile: trace files {files}")
+    with open(os.path.join(traces, files[0])) as f:
+        text = f.read()
+    found = [k for k in PORT_KERNELS if k in text]
+    if "zflac_tpu_torch.decode" not in text or not found:
+        raise AssertionError(
+            f"profile: {files[0]} ({len(text)} B) holds the label: "
+            f"{'zflac_tpu_torch.decode' in text}, kernels: {found}")
+    say("profile", f"decode of bench16 under ZFLAC_TPU_PROFILE: "
+        f"{files[0]} ({len(text)} B) holds the label "
+        f"zflac_tpu_torch.decode and the kernels {found}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -836,12 +1341,14 @@ def main() -> None:
                           for i, ck in enumerate(cks)]
     for name, (data, _) in corpus.items():
         kernel_checks(dev, diff, name, first_chunk(data))
-    rows_ins = {name: rows_lpc_checks(dev, diff, f"{name} rows plan", data)
+    rows_ins = {name: rows_lpc_checks(dev, diff, f"{name} rows plan",
+                                      build_plan(data))
                 for name, (data, _) in benches.items()}
     safe_ins = rows_lpc_checks(dev, diff, "bench16 safe_lpc rows plan",
-                               benches["bench16"][0], safe_lpc=True)
+                               build_plan(benches["bench16"][0]),
+                               safe_lpc=True)
     for name, (data, _) in corpus.items():
-        rows_lpc_checks(dev, diff, f"{name} rows plan", data)
+        rows_lpc_checks(dev, diff, f"{name} rows plan", build_plan(data))
     synthetic_checks(dev, diff)
     torch.cuda.synchronize()
     for name, d in ins.items():
@@ -981,10 +1488,25 @@ def main() -> None:
             f"device buffer: {rec_ms:.4f} ms = "
             f"{n_samples / rec_ms / 1e3:.1f} Msamples/s (both channels; "
             f"per call, median of {REPS} batches, CUDA events) on {line}")
-    for name in ("bench16", "bench24"):
-        e2e_times(benches[name][0], BENCH[name][0] * 2, line, name)
+    single_ms = {name: e2e_times(benches[name][0], BENCH[name][0] * 2,
+                                 line, name)
+                 for name in ("bench16", "bench24")}
     for name in ("bench16", "bench24"):
         rows_times(benches[name][0], BENCH[name][0] * 2, line, name)
+
+    # ---- the faults repaired; the multi-device, multi-process and
+    # command-line paths ----
+    faults_phase(dev, benches)
+    mesh = make_mesh() if torch.cuda.device_count() > 1 \
+        else make_mesh(["cuda:0"] * 4)
+    sharded_phase(diff, benches, mesh, single_ms, line, launches)
+    longstream_phase(diff, benches, mesh, line, launches)
+    os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_kernels.BUILD_DIR) as tmp:
+        distributed_phase(diff, *benches["bench16"], tmp, line)
+        cli_and_profile_phase(benches["bench16"][1], tmp, line)
+    say("device", f"{torch.cuda.device_count()} card(s) on the host; total "
+        f"{time.perf_counter() - t_streams:.0f} s since the build began")
 
     records = [{"name": k, "route": "cuda", "source": src,
                 "replaces": rep, "launches": int(launches.get(k, 0)),

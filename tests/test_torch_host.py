@@ -79,6 +79,12 @@ def test_port_source_imports_nothing_of_the_jax_package():
     bad = []
     files = list(_port_files())
     assert len(files) > 20
+    rel = {os.path.relpath(f, os.path.join(_REPO, "zflac_tpu_torch"))
+           for f in files}
+    assert {"cli.py", os.path.join("utils", "timer.py"),
+            os.path.join("utils", "profiler.py"),
+            *(os.path.join("parallel", m + ".py") for m in
+              ("__init__", "shard", "longstream", "distributed"))} <= rel
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -176,7 +176,10 @@ def test_port_imports_no_jax():
             "from zflac_tpu_torch import _kernels, format, bitio, errors, "
             "crc, result, plan, metadata, oracle, encoder, testing\n"
             "from zflac_tpu_torch.index import native_indexer, py_indexer\n"
-            "from zflac_tpu_torch.utils import log\n"
+            "from zflac_tpu_torch.utils import log, timer, profiler\n"
+            "from zflac_tpu_torch.parallel import shard, longstream, "
+            "distributed\n"
+            "from zflac_tpu_torch import cli\n"
             "from zflac_tpu_torch.tools import kernel_sass\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules\n"
@@ -300,19 +303,41 @@ def test_entry_points_default_to_the_card(corpus):
     CPU."""
     import inspect
 
+    from zflac_tpu_torch.index import build_plan
+    from zflac_tpu_torch.parallel import distributed, longstream, shard
     from zflac_tpu_torch.runtime import decode as rd
     from zflac_tpu_torch.runtime import seek as rs
 
     for fn in (rt.decode_to_device, rd.decode, rd.decode_pipelined,
-               rd.stream_decode, rs.decode_range, rs.decode_tolerant):
+               rd.stream_decode, rs.decode_range, rs.decode_tolerant,
+               distributed.decode_longstream_distributed):
         assert inspect.signature(fn).parameters["device"].default == \
             "cuda", fn.__name__
     assert inspect.signature(rd.decode).parameters["engine"].default == \
         "torch"
+    # The multi-device entry points take their devices as a list: the
+    # default is every visible card, and a CUDA entry with no card
+    # raises.
+    assert inspect.signature(shard.make_mesh).parameters[
+        "devices"].default is None
+    assert inspect.signature(distributed.decode_pack2_distributed) \
+        .parameters["devices"].default is None
+    data = corpus["lpc order 8"][0]
     if not torch.cuda.is_available():
-        for fn in (zflac_tpu_torch.decode_to_device, zflac_tpu_torch.decode):
+        for call in (
+                lambda: zflac_tpu_torch.decode_to_device(data),
+                lambda: zflac_tpu_torch.decode(data),
+                lambda: shard.make_mesh(),
+                lambda: shard.decode_to_device_sharded(data, ["cuda:0"] * 2),
+                lambda: shard.reconstruct_sharded(build_plan(data),
+                                                  ["cuda:0"]),
+                lambda: longstream.decode_longstream(data, 2, ["cuda:0"]),
+                lambda: distributed.decode_longstream_distributed(data),
+                lambda: distributed.decode_pack2_distributed(data),
+                lambda: distributed.decode_pack2_distributed(
+                    data, devices=["cuda:0"])):
             with pytest.raises(RuntimeError, match="CUDA is not available"):
-                fn(corpus["lpc order 8"][0])
+                call()
 
 
 def test_entry_points_take_a_path(corpus, tmp_path):
@@ -327,3 +352,294 @@ def test_entry_points_take_a_path(corpus, tmp_path):
     r = zflac_tpu_torch.decode_range(path, 100, 50, device="cpu")
     np.testing.assert_array_equal(r.interleaved,
                                   b.interleaved[200:300])
+
+
+# ---- empty shapes: the wrappers return what the plain versions do ----
+
+def test_empty_shapes_return_empty():
+    """B == 0 and n == 0 through the LPC wrappers, NGp == 0 through
+    rice16 and Fp == 0 through packtail: the plain versions' empty
+    results, which the CUDA route returns too without a launch (its
+    launchers reject an empty grid)."""
+    from zflac_tpu_torch.ops.lpc import (lpc_reconstruct,
+                                         lpc_reconstruct_ref)
+    from zflac_tpu_torch.ops.lpc2 import (launch_recurrence,
+                                          lpc2_reconstruct,
+                                          lpc2_reconstruct_ref)
+    from zflac_tpu_torch.ops.lpc2w import (lpc2w33_reconstruct,
+                                           lpc2w33_reconstruct_ref,
+                                           lpc2w_reconstruct,
+                                           lpc2w_reconstruct_ref)
+    from zflac_tpu_torch.ops.packtail import packtail, packtail_ref
+    from zflac_tpu_torch.ops.rice16 import (G2, rice16_unpack,
+                                            rice16_unpack_ref,
+                                            rice16_unpack_rows,
+                                            rice16_unpack_rows_ref)
+
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype)
+
+    for B, n in ((0, 128), (128, 0), (0, 0)):
+        for fn, ref, dtype in (
+                (lpc2_reconstruct, lpc2_reconstruct_ref, torch.int32),
+                (lpc2w_reconstruct, lpc2w_reconstruct_ref, torch.int32),
+                (lpc2w33_reconstruct, lpc2w33_reconstruct_ref, torch.int64)):
+            args = (z(B, n, dtype=dtype), z(8, n), z(n), z(n))
+            got, want = fn(*args), ref(*args)
+            assert got.shape == want.shape == (B, n)
+            assert got.dtype == want.dtype == dtype
+        for dtype in (torch.int32, torch.int64):
+            args = (z(B, n, dtype=dtype), z(32, n), z(n), z(n))
+            got, want = lpc_reconstruct(*args), lpc_reconstruct_ref(*args)
+            assert got.shape == want.shape == (B, n) and got.dtype == dtype
+    for W in (8, 16):
+        got = rice16_unpack_rows(z(W, 0), z(0), Ssort=64)
+        want = rice16_unpack_rows_ref(z(W, 0), z(0), Ssort=64)
+        assert got.shape == want.shape == (0, 64)
+        assert got.dtype == want.dtype == torch.int32
+        got, want = rice16_unpack(z(W, 0), z(0)), rice16_unpack_ref(
+            z(W, 0), z(0))
+        assert got.shape == want.shape == (G2, 0)
+    for cb, dtype in ((16, torch.int32), (8, torch.int16)):
+        args = (z(3, 128), z(0), z(0), z(0))
+        got = packtail(*args, Fp=0, container_bits=cb)
+        want = packtail_ref(*args, Fp=0, container_bits=cb)
+        assert got.shape == want.shape == (0, 128)
+        assert got.dtype == want.dtype == dtype
+
+    # The CUDA route's argument checks, then its early return: with the
+    # launch stubbed out, an empty shape must not reach it.
+    def no_launch(*a, **k):
+        raise AssertionError("an empty shape reached the launcher")
+
+    real = _kernels.launch
+    _kernels.launch = no_launch
+    try:
+        for B, n in ((0, 128), (128, 0)):
+            out = launch_recurrence("lpc2", torch.int32, z(B, n), z(8, n),
+                                    z(n), z(n))
+            assert out.shape == (B, n)
+        from zflac_tpu_torch.ops import rice16
+        assert rice16._launch("rice16", z(8, 0), z(0), 64).shape == (0, 64)
+        # The flat layout of no group: Ssort = NG = 0, one empty p-row.
+        assert rice16._launch("rice16_flat", z(8, 0), z(0),
+                              0).shape == (G2, 0)
+        with pytest.raises(ValueError, match="not a multiple"):
+            rice16._launch("rice16", z(8, 64), z(64), 0)
+    finally:
+        _kernels.launch = real
+
+
+# ---- a launch leaves the thread's CUDA device as it found it ----
+
+def test_launch_runs_inside_a_device_guard(monkeypatch):
+    """_kernels.launch calls the C launcher (which switches the CUDA
+    device and does not switch back) inside torch.cuda.device(device)
+    for the tensors' device, on that device's current stream, and
+    counts the launch after the guard is left."""
+    import contextlib
+
+    events = []
+    dev = torch.device("cuda", 1)
+
+    class Lib:
+        @staticmethod
+        def zft_lpc2(*args):
+            events.append(("launcher", args))
+            return 0
+
+        @staticmethod
+        def zft_packtail(*args):
+            events.append(("launcher", args))
+            return 7
+
+        @staticmethod
+        def zft_error_string(rc):
+            return b"stub error"
+
+    @contextlib.contextmanager
+    def guard(device):
+        events.append(("enter", device))
+        try:
+            yield
+        finally:
+            events.append(("exit", device))
+
+    class Stream:
+        cuda_stream = 1234
+
+    def current_stream(device):
+        events.append(("stream", device))
+        return Stream()
+
+    monkeypatch.setattr(_kernels, "library", lambda: Lib)
+    monkeypatch.setattr(torch.cuda, "device", guard)
+    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+    _kernels.launches.clear()
+    _kernels.launch("lpc2", dev, 11, 22)
+    assert events == [("enter", dev), ("stream", dev),
+                      ("launcher", (11, 22, 1, 1234)), ("exit", dev)]
+    assert _kernels.launches == {"lpc2": 1}
+    # A launcher that fails raises after the guard is left, uncounted.
+    events.clear()
+    with pytest.raises(RuntimeError, match="CUDA error 7 .stub error."):
+        _kernels.launch("packtail", dev, 5)
+    assert [e[0] for e in events] == ["enter", "stream", "launcher", "exit"]
+    assert _kernels.launches == {"lpc2": 1}
+    _kernels.launches.clear()
+
+
+def test_launch_counts_under_the_lock(monkeypatch):
+    """Launches from several threads (shards driven in parallel) are
+    all counted."""
+    import contextlib
+    import threading
+
+    class Lib:
+        @staticmethod
+        def zft_lpc(*args):
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(_kernels, "library", lambda: Lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: Stream())
+    _kernels.launches.clear()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def work():
+            for _ in range(2000):
+                _kernels.launch("lpc", torch.device("cuda", 0))
+        threads = [threading.Thread(target=work) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    assert _kernels.launches == {"lpc": 16000}
+    _kernels.launches.clear()
+
+
+def test_reconstruct_chunks_deals_chunks_round_robin(monkeypatch, corpus):
+    """The loop decode_to_device and decode_to_device_sharded share:
+    chunk i goes to devices[i % D], `each` sees every uploaded buffer,
+    and the PCM is decode_to_device's."""
+    from zflac_tpu_torch.bitio import BitReader
+    from zflac_tpu_torch.oracle import parse_metadata
+
+    data = corpus["lpc order 8"][0]
+    br = BitReader(data)
+    info = parse_metadata(br)
+    cks = rt.stream_chunks(data, info, br.pos // 8, chunk_frames=2)
+    assert len(cks) >= 3
+    went_to = []
+    real = rt.chunk_to_torch
+
+    def record(ck, device):
+        went_to.append(device)
+        return real(ck, "cpu")
+
+    monkeypatch.setattr(rt, "chunk_to_torch", record)
+    seen = []
+    pcms = rt.reconstruct_chunks(cks, ["a", "b"],
+                                 each=lambda buf, geom: seen.append(geom.Fp))
+    assert went_to == ["a", "b"] * (len(cks) // 2) + ["a"] * (len(cks) % 2)
+    assert seen == [2] * len(cks)
+    monkeypatch.undo()
+    dd = zflac_tpu_torch.decode_to_device(data, device="cpu", chunk_frames=2)
+    assert len(dd.chunks) == len(pcms)
+    for got, want in zip(pcms, dd.chunks):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("total, want", [
+    (0, None),              # no total
+    (700, None),            # the total is the decoded length
+    (650, None),            # a frame crosses the total: all is kept
+    (400, (1, 400)),        # chunk 1's second frame starts at the total
+    (300, (1, 300)),        # chunk 1 keeps no frame
+    (100, (0, 100)),
+])
+def test_cut_at_total_edits_the_tables(total, want):
+    """cut_at_total zeroes the tables from the first dropped frame on,
+    and leaves them alone when nothing drops."""
+    num_frames = [3, 2, 2]
+    block_sizes = [np.array([100, 100, 100]), np.array([100, 100]),
+                   np.array([100, 100])]
+    before = [b.copy() for b in block_sizes]
+    assert rt.cut_at_total(num_frames, block_sizes, total) == want
+    if want is None:
+        assert num_frames == [3, 2, 2]
+        for b, b0 in zip(block_sizes, before):
+            np.testing.assert_array_equal(b, b0)
+        return
+    ci, kept = want
+    assert sum(num_frames) * 100 == kept
+    assert sum(int(b.sum()) for b in block_sizes) == kept
+    assert all(f == 0 and len(b) == 0 for f, b in
+               zip(num_frames[ci + 1:], block_sizes[ci + 1:]))
+    for b0 in before:       # the chunks' own arrays are not written to
+        assert (b0 == 100).all()
+
+
+# ---- the profiler hook and the stage timers ----
+
+def test_maybe_trace_is_a_noop_when_unset(monkeypatch, tmp_path):
+    from zflac_tpu_torch.utils import profiler
+
+    monkeypatch.setattr(profiler, "_PROFILE_DIR", "")
+    monkeypatch.chdir(tmp_path)
+    with profiler.maybe_trace("nothing"):
+        pass
+    assert os.listdir(tmp_path) == []
+
+
+def test_maybe_trace_writes_a_trace_per_decode(monkeypatch, tmp_path,
+                                               corpus):
+    """With the profile directory set, each decode() leaves one Chrome
+    trace file there that holds the region's label; the PCM is what it
+    is without tracing."""
+    import json
+
+    from zflac_tpu_torch.utils import profiler
+
+    data = corpus["lpc order 8"][0]
+    want = zflac_tpu_torch.decode(data, device="cpu").interleaved
+    out = tmp_path / "traces"
+    monkeypatch.setattr(profiler, "_PROFILE_DIR", str(out))
+    for n in (1, 2):
+        got = zflac_tpu_torch.decode(data, device="cpu").interleaved
+        np.testing.assert_array_equal(got, want)
+        assert len(os.listdir(out)) == n
+    for name in os.listdir(out):
+        assert name.startswith("zflac_tpu_torch.decode.")
+        with open(out / name) as f:
+            trace = json.load(f)
+        assert any(e.get("name") == "zflac_tpu_torch.decode"
+                   for e in trace["traceEvents"])
+
+
+def test_stage_timers_sum_repeated_stages():
+    import time
+
+    from zflac_tpu_torch.utils import StageTimers, get_logger
+
+    t = StageTimers()
+    for _ in range(3):
+        with t.stage("scan"):
+            time.sleep(0.002)
+    with pytest.raises(KeyError):
+        with t.stage("fails"):
+            raise KeyError("still timed")
+    times = t.as_dict()
+    assert set(times) == {"scan", "fails"} and times["scan"] >= 0.006
+    times["scan"] = 0                      # a copy
+    assert t.times["scan"] >= 0.006
+    assert repr(t).startswith("StageTimers(scan=")
+    assert get_logger("shard").name.endswith("shard")

@@ -19,6 +19,7 @@ from torch_slice import (  # noqa: E402
     assert_same,
     check_rows_engine,
     check_stream,
+    with_total,
 )
 
 pytestmark = pytest.mark.skipif(
@@ -35,14 +36,6 @@ def test_rows_engine_matches_jax(name, corpus):
     check_rows_engine(name, corpus)
 
 
-def _with_total(data: bytes, total: int) -> bytes:
-    """The stream with STREAMINFO's 36-bit total-samples field set to
-    `total` (bytes 18-25: rate 20 | channels 3 | bps 5 | total 36)."""
-    v = int.from_bytes(data[18:26], "big")
-    v = (v & ~((1 << 36) - 1)) | total
-    return data[:18] + v.to_bytes(8, "big") + data[26:]
-
-
 @pytest.mark.parametrize("total,kw", [
     (3072, {}),                     # frame 3 starts at the total: cut
     (1024, dict(chunk_frames=2)),   # cut in the first of several chunks
@@ -50,7 +43,7 @@ def _with_total(data: bytes, total: int) -> bytes:
 ])
 def test_stop_cut_matches_jax(total, kw, corpus):
     """A fudged STREAMINFO total gets the JAX package's stop cut."""
-    data = _with_total(corpus["lpc order 8"][0], total)
+    data = with_total(corpus["lpc order 8"][0], total)
     dd = zflac_tpu_torch.decode_to_device(data, device="cpu", **kw)
     ref = zflac_tpu.decode_to_device(data, **kw)
     assert_same(dd, ref, verify_md5=False)

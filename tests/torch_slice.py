@@ -48,6 +48,14 @@ ALL_STREAMS = (SUBFRAME_STREAMS + FORMAT_STREAMS + BLOCKING_STREAMS +
                HIRES_STREAMS + CHANNEL_STREAMS)
 
 
+def with_total(data: bytes, total: int) -> bytes:
+    """The stream with STREAMINFO's 36-bit total-samples field set to
+    `total` (bytes 18-25: rate 20 | channels 3 | bps 5 | total 36)."""
+    v = int.from_bytes(data[18:26], "big")
+    v = (v & ~((1 << 36) - 1)) | total
+    return data[:18] + v.to_bytes(8, "big") + data[26:]
+
+
 def assert_same(dd, ref, verify_md5=True):
     """Same frames, block sizes and PCM (host and device assembly, both
     normalization domains) as the JAX DeviceDecoded `ref`. Returns the

@@ -20,12 +20,33 @@ passes device="cpu" (or "cuda:N"); with no card a CUDA request raises.
 On CPU tensors each kernel wrapper runs its plain PyTorch version,
 which the tests hold bit-exact to the JAX package.
 
+`zflac_tpu_torch.parallel` spreads both engines over several cards and
+processes (frame-sharded decode over a list of devices, long streams
+split at frame anchors, multi-process decode over torch.distributed),
+and `python -m zflac_tpu_torch.cli` is the command line.
+
 This package imports torch, and neither jax nor zflac_tpu: it keeps
 its own copies of the JAX package's host modules (format, bitio,
 errors, crc, result, plan, metadata, oracle, index with the C++ scan
 sources, utils.log, and encoder and testing for chip_smoke.py).
 """
 
+from . import format  # noqa: F401
+from .errors import (  # noqa: F401
+    EndOfStream,
+    FlacError,
+    InconsistentParameters,
+    InvalidChecksum,
+    InvalidCodedNumber,
+    InvalidFrameHeader,
+    InvalidMetadataHeader,
+    InvalidResidualCodingMethod,
+    InvalidSignature,
+    InvalidSubframeHeader,
+    MissingStreaminfo,
+    Unimplemented,
+)
+from .result import DecodedFLAC  # noqa: F401
 from .runtime.device import DeviceDecoded, decode_to_device  # noqa: F401
 
 __version__ = "0.1.0"
@@ -74,3 +95,16 @@ def stream_decode(data, **kwargs):
     (runtime/decode.py)."""
     from .runtime.decode import stream_decode as _sd
     return _sd(_read(data), **kwargs)
+
+
+def decode_oracle(data, **kwargs):
+    """Decode with the pure-Python scalar oracle (slow; testing)."""
+    from .oracle import decode as _decode
+    return _decode(_read(data), **kwargs)
+
+
+def probe(data):
+    """Parse stream metadata (tags, seek table, pictures) without
+    decoding audio (metadata.py)."""
+    from .metadata import probe as _probe
+    return _probe(_read(data))

@@ -8,9 +8,12 @@ built at first use into build/zflac_tpu_torch/ under the checkout, one
 nvcc process per source started together and one link, and rebuilt
 when any source is newer than it.
 
-Every launch goes through `launch`: it passes PyTorch's current stream,
-raises on the CUDA status the launcher returns, and counts the launch
-in `launches` (kernel name -> count), which the smoke run reads to show
+Every launch goes through `launch`: it makes the tensors' device the
+current one for the call and restores the caller's afterwards (the C
+launchers call cudaSetDevice and do not restore it), passes PyTorch's
+current stream on that device, raises on the CUDA status the launcher
+returns, and counts the launch in `launches` (kernel name -> count,
+updated under the module's lock), which the smoke run reads to show
 that the main path went through each kernel. Nothing is built or
 loaded until a CUDA tensor reaches a kernel wrapper.
 """
@@ -134,16 +137,21 @@ def library() -> ctypes.CDLL:
 def launch(name: str, device, *args) -> None:
     """Launch kernel `name` on `device`'s current PyTorch stream with
     launcher arguments `args` (tensor data pointers and ints), raise on
-    a CUDA error, and count the launch."""
+    a CUDA error, and count the launch. The launcher switches the
+    thread's CUDA device to `device`; the guard around it puts the
+    caller's device back, so a decode on another card than the current
+    one leaves the thread where it was."""
     import torch
     lib = library()
     cname, _ = _LAUNCHERS[name]
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, cname)(*args, device.index, stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, cname)(*args, device.index, stream)
     if rc != 0:
         msg = lib.zft_error_string(rc).decode()
         raise RuntimeError(f"{cname}: CUDA error {rc} ({msg})")
-    launches[name] += 1
+    with _lock:
+        launches[name] += 1
 
 
 def route(*tensors) -> str:

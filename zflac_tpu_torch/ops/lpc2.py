@@ -65,7 +65,7 @@ def launch_recurrence(name, dtype, rows_t, cfwd_t, shift, order):
     _kernels.check(shift, "shift", torch.int32, shape=(n,))
     _kernels.check(order, "order", torch.int32, shape=(n,))
     out = torch.empty((B, n), dtype=dtype, device=rows_t.device)
-    if n == 0:
+    if n == 0 or B == 0:
         return out
     _kernels.launch(name, rows_t.device, rows_t.data_ptr(),
                     rows_t.stride(0), cfwd_t.data_ptr(), cfwd_t.stride(0),

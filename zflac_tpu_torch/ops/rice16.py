@@ -119,6 +119,8 @@ def rice16_unpack_ref(win, meta):
     zflac_tpu/ops/rice16.py rice16_unpack_inline): win [W, NG] int32,
     meta [NG] int32 -> [G2, NG] int32, residual j of group g at [j, g].
     It is the rows layout with one p-row, Ssort = NG."""
+    if win.shape[1] == 0:
+        return win.new_empty((G2, 0))
     return rice16_unpack_rows_ref(win, meta, Ssort=win.shape[1])
 
 
@@ -138,13 +140,17 @@ def _launch(name, win, meta, Ssort):
     W, NGp = win.shape
     if W not in (8, 16):
         raise ValueError(f"{name}: window of {W} words (kernel takes 8, 16)")
-    if Ssort <= 0 or NGp % Ssort:
+    # The flat layout of no group has Ssort = NG = 0: one empty p-row.
+    p_rows = NGp // Ssort if Ssort > 0 else 1
+    if p_rows * Ssort != NGp:
         raise ValueError(f"{name}: NGp {NGp} is not a multiple of Ssort "
                          f"{Ssort}")
     _kernels.check(win, "win", torch.int32)
     _kernels.check(meta, "meta", torch.int32, shape=(NGp,))
-    out = torch.empty(((NGp // Ssort) * G2, Ssort), dtype=torch.int32,
+    out = torch.empty((p_rows * G2, Ssort), dtype=torch.int32,
                       device=win.device)
+    if NGp == 0:
+        return out
     _kernels.launch(name, win.device, win.data_ptr(), meta.data_ptr(),
                     out.data_ptr(), W, NGp, Ssort)
     return out

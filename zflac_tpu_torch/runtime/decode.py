@@ -371,7 +371,9 @@ def decode(data: bytes, check_crc: bool = False, verify_md5: bool = True,
             plan.info.bits_per_sample))
         path = "empty"
     else:
-        interleaved = _assemble(plan, _run_reconstruct(plan, device))
+        from ..utils.profiler import maybe_trace
+        with maybe_trace("zflac_tpu_torch.decode", device):
+            interleaved = _assemble(plan, _run_reconstruct(plan, device))
         path = "rows"
     interleaved = _finish(interleaved, plan.info.bits_per_sample,
                           plan.info.md5, verify_md5)

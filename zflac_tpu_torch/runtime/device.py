@@ -346,23 +346,10 @@ class DeviceDecoded:
         """Interleaved host PCM (the reference's output contract),
         with the stream MD5 verified (raises InvalidChecksum) and the
         bit-depth normalization applied (zflac.zig:267-306)."""
-        C = self.channels
-        out = np.empty(self.total_samples * C,
-                       dtype=container_dtype(self.bits_per_sample))
-        at = 0
-        for pcm_dev, F, bs in zip(self.chunks, self.num_frames,
-                                  self.block_sizes):
-            pcm = pcm_dev[:F].cpu().numpy()
-            if F and np.all(bs == bs[0]):
-                part = pcm[:, :bs[0], :].reshape(-1)[:bs.sum() * C]
-                out[at:at + len(part)] = part
-                at += len(part)
-            else:
-                for f in range(F):
-                    n = bs[f] * C
-                    out[at:at + n] = pcm[f, :bs[f], :].reshape(-1)
-                    at += n
-        out = out[:at]
+        out = assemble_chunks(
+            ((pcm[:F].cpu().numpy(), F, bs) for pcm, F, bs in
+             zip(self.chunks, self.num_frames, self.block_sizes)),
+            self.bits_per_sample)
         if verify_md5 and self.md5:
             if not verify_stream_md5(out, self.bits_per_sample, self.md5):
                 raise InvalidChecksum("stream MD5 mismatch")
@@ -370,9 +357,28 @@ class DeviceDecoded:
         if shift:
             out = out << shift
         return DecodedFLAC(
-            channels=C, sample_rate=self.sample_rate,
+            channels=self.channels, sample_rate=self.sample_rate,
             bits_per_sample=self.bits_per_sample, interleaved=out,
             stats=dict(self.stats))
+
+
+def chunk_parts(p: np.ndarray, F: int, bs) -> list:
+    """The valid samples of one chunk's host PCM p [>= F, Bp, C],
+    interleaved, as a list of flat arrays: one slice for a constant
+    block size, else one per frame."""
+    if F and np.all(bs[:F] == bs[0]):
+        return [p[:F, :bs[0], :].reshape(-1)]
+    return [p[f, :bs[f], :].reshape(-1) for f in range(F)]
+
+
+def assemble_chunks(chunks, bits_per_sample: int) -> np.ndarray:
+    """Interleaved host PCM (pre-normalization domain) of `chunks`, an
+    iterable of (host PCM [>= F, Bp, C], F, block sizes); empty in the
+    container dtype when they hold no frame."""
+    parts = [part for p, F, bs in chunks for part in chunk_parts(p, F, bs)]
+    if not parts:
+        return np.zeros(0, dtype=container_dtype(bits_per_sample))
+    return np.concatenate(parts)
 
 
 def verify_stream_md5(interleaved: np.ndarray, bps: int,
@@ -505,6 +511,51 @@ def apply_stop_cut(block_sizes, total: int):
     return None
 
 
+def cut_at_total(num_frames: list, block_sizes: list, total: int):
+    """apply_stop_cut on a decode's per-chunk tables, in place: the
+    chunk that holds the first dropped frame keeps its frames before
+    it (the block sizes from it on set to 0), and every later chunk
+    keeps none. Returns None when nothing drops (no total, or none
+    reached), else (that chunk's index, the samples kept)."""
+    decoded = sum(int(bs.sum()) for bs in block_sizes)
+    if not total or decoded <= total:
+        return None
+    cut = apply_stop_cut(block_sizes, total)
+    if cut is None:
+        return None
+    ci, fi, kept = cut
+    bs = block_sizes[ci].copy()
+    bs[fi:] = 0
+    block_sizes[ci] = bs
+    num_frames[ci] = fi
+    for cj in range(ci + 1, len(block_sizes)):
+        num_frames[cj] = 0
+        block_sizes[cj] = block_sizes[cj][:0]
+    return ci, kept
+
+
+def reconstruct_chunks(cks, devices, each=None) -> list:
+    """Chunk i of one stream's pack2 chunks uploaded to
+    devices[i % len(devices)] and reconstructed there, every chunk
+    queued and none waited for: the list of PCM tensors [Fp, Bp, C].
+    `each(buf, geom)`, when given, is called on every chunk's uploaded
+    buffer after its reconstruction is queued. Raises
+    InconsistentParameters when the stream's parameters change between
+    chunks."""
+    pcms = []
+    for i, ck in enumerate(cks):
+        if (ck.sample_rate != cks[0].sample_rate or ck.C != cks[0].C or
+                ck.bits_per_sample != cks[0].bits_per_sample):
+            raise InconsistentParameters(
+                "stream parameters changed mid-stream")
+        buf, geom = chunk_to_torch(ck, devices[i % len(devices)])
+        pcms.append(reconstruct_pack2(
+            buf, geom, container_bits=fmt.container_bits(ck.bits_per_sample)))
+        if each is not None:
+            each(buf, geom)
+    return pcms
+
+
 def stream_chunks(data: bytes, info, pos: int, *, check_crc: bool = False,
                   chunk_frames: int = 0, scan_workers: int = 0,
                   stats: dict | None = None):
@@ -582,43 +633,25 @@ def decode_to_device(data: bytes, *, device="cuda", check_crc: bool = False,
         return None
 
     t_enqueue = time.perf_counter()
-    dd = None
-    for ck in cks:
-        if dd is None:
-            dd = DeviceDecoded(
-                channels=ck.C, sample_rate=ck.sample_rate,
-                bits_per_sample=ck.bits_per_sample, total_samples=0,
-                device=device, md5=info.md5,
-                stats={"engine": "pack2", "frames": 0})
-        elif ck.sample_rate != dd.sample_rate or ck.C != dd.channels:
-            raise InconsistentParameters(
-                "stream parameters changed mid-stream")
-        buf, geom = chunk_to_torch(ck, device)
-        pcm = reconstruct_pack2(
-            buf, geom, container_bits=fmt.container_bits(ck.bits_per_sample))
-        dd.chunks.append(pcm)
-        dd.num_frames.append(ck.F)
-        dd.block_sizes.append(ck.f_block_size)
-        dd.total_samples += int(ck.f_block_size.sum())
-        dd.stats["frames"] += ck.F
+    dd = DeviceDecoded(
+        channels=cks[0].C, sample_rate=cks[0].sample_rate,
+        bits_per_sample=cks[0].bits_per_sample, total_samples=0,
+        device=device, md5=info.md5,
+        chunks=reconstruct_chunks(cks, [device]),
+        num_frames=[ck.F for ck in cks],
+        block_sizes=[ck.f_block_size for ck in cks],
+        stats={"engine": "pack2"})
     # Host-clock phase times: the scan (with the frame estimate), the
     # union re-scan, and queueing the uploads and kernels (the device
     # work itself is not waited for).
     t_end = time.perf_counter()
-    dd.stats.update(chunks=len(dd.chunks), **times,
-                    enqueue_ms=(t_end - t_enqueue) * 1e3)
-    if info.total_samples and dd.total_samples > info.total_samples:
-        cut = apply_stop_cut(dd.block_sizes, info.total_samples)
-        if cut is not None:
-            ci, fi, kept = cut
-            bs = dd.block_sizes[ci].copy()
-            bs[fi:] = 0
-            dd.block_sizes[ci] = bs
-            dd.num_frames[ci] = fi
-            del dd.chunks[ci + 1:]
-            del dd.num_frames[ci + 1:]
-            del dd.block_sizes[ci + 1:]
-            dd.stats["frames"] = sum(dd.num_frames)
-            dd.stats["chunks"] = len(dd.chunks)
-            dd.total_samples = kept
+    dd.total_samples = sum(int(bs.sum()) for bs in dd.block_sizes)
+    cut = cut_at_total(dd.num_frames, dd.block_sizes, info.total_samples)
+    if cut is not None:
+        ci, dd.total_samples = cut
+        del dd.chunks[ci + 1:]
+        del dd.num_frames[ci + 1:]
+        del dd.block_sizes[ci + 1:]
+    dd.stats.update(frames=sum(dd.num_frames), chunks=len(dd.chunks),
+                    **times, enqueue_ms=(t_end - t_enqueue) * 1e3)
     return dd
