@@ -25,17 +25,24 @@ build/zflac_tpu_torch/, then:
      every stream's real pack2 chunk sections, lpc and lpc64 on the LPC
      classes of every stream's rows-engine plan (gathered as the rows
      engine gathers them, a safe_lpc plan of bench16 too), and all of
-     them on seeded synthetic inputs (the five ring kernels over hist
-     8/16/32, 1 to 2048 lanes, B 8 to 4096, orders 0-32, every shift
-     amount, unaligned lane slices, warps of one launch that take
-     different histories and shift forms); then times each kernel and
-     its plain version at the bench shapes (CUDA events, median of 25
-     batches of back-to-back calls after warm-up; 5 for the plain lpc
-     and lpc64, a Python loop of 4096 steps) beside its bound, lpc64
-     also on bench32ms's rows class and bench16's safe_lpc class, the
-     redesigned kernels at hist 32, and lpc2, lpc2w and lpc2w33 on each
-     chunk decode_to_device reconstructs for bench16, bench24 and
-     bench32ms, in ns a step;
+     them on seeded synthetic inputs (rice16, rice16_flat and packtail
+     from the CPU tests' generators at the bench chunks' shapes, with
+     Rice parameters up to 61, unary runs across words, Fp 1, Bp not a
+     multiple of 4 or 8 and inputs at an odd offset; the five ring
+     kernels over hist 8/16/32, 1 to 2048 lanes, B 8 to 4096, orders
+     0-32, every shift amount, unaligned lane slices, warps of one
+     launch that take different histories and shift forms); then times
+     each kernel and its plain version at the bench shapes (CUDA events,
+     median of 25 batches of back-to-back calls after warm-up; 5 for the
+     plain lpc and lpc64, a Python loop of 4096 steps; rice16,
+     rice16_flat and packtail, whose launches take less device time than
+     the host's issue, from 25 replays of a CUDA graph of 20 calls)
+     beside its bound,
+     lpc64 also on bench32ms's rows class and bench16's safe_lpc class,
+     the redesigned kernels at hist 32, and rice16, packtail and the LPC
+     kernel on each chunk decode_to_device reconstructs for bench16,
+     bench24 and bench32ms (the LPC kernels in ns a step), summed per
+     call against the summed bound;
   5. drives both main paths, each with the launch counters reset just
      before and read just after (each kernel of the path must have
      launched): decode_to_device on each bench stream, and the rows
@@ -87,6 +94,13 @@ build/zflac_tpu_torch/, then:
      ZFLAC_TPU_PROFILE set; the trace file must hold the region's label
      and one of the port's kernels.
 
+With --compare-csrc CSRC (another checkout's zflac_tpu_torch/csrc, say
+the parent commit's, unpacked under build/), step 4 also builds that
+tree's rice16 and packtail (tools/kernel_ab.py) and times them beside
+this checkout's, from CUDA graphs and in turns, on each bench stream's
+whole-stream chunk and decode_to_device chunks, after checking that
+both give the same output.
+
 Any failure raises, and the exit code is then not 0. With no CUDA
 device it exits 1 before doing anything. The last lines are one JSON
 object with a record per kernel (launches on the main paths, max
@@ -98,6 +112,7 @@ library_ms is null), the nvidia-smi line, and {"ok": true, "device":
 
 from __future__ import annotations
 
+import argparse
 import ast
 import json
 import multiprocessing
@@ -139,13 +154,14 @@ from zflac_tpu_torch.ops.lpc2 import lpc2_reconstruct_ref
 from zflac_tpu_torch.ops.lpc2w import (lpc2w33_reconstruct_ref,
                                        lpc2w_reconstruct_ref)
 from zflac_tpu_torch.ops.packtail import packtail, packtail_ref
-from zflac_tpu_torch.ops.rice16 import (K2_ESCAPE, K2_INVALID,
-                                        rice16_unpack, rice16_unpack_ref,
+from zflac_tpu_torch.ops.rice16 import (rice16_unpack, rice16_unpack_ref,
                                         rice16_unpack_rows,
                                         rice16_unpack_rows_ref)
 from zflac_tpu_torch.runtime import decode as rd
 from zflac_tpu_torch.runtime import device as rt
 from zflac_tpu_torch.runtime.reconstruct import lpc_class_inputs
+from zflac_tpu_torch.tools import kernel_ab
+from zflac_tpu_torch.tools.kernel_inputs import packtail_inputs, rice_groups
 from zflac_tpu_torch.tools.kernel_sass import kernel_name
 
 BENCH_BLOCK = 4096
@@ -296,6 +312,46 @@ def cuda_ms(fn, reps: int = REPS) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
+    return statistics.median(times)
+
+
+# The kernels whose launch takes less device time than the host takes
+# to issue it from Python, at the main path's shapes: their batches of
+# back-to-back calls measure the host, so they are timed from a graph.
+STREAMING = ("rice16", "rice16_flat", "packtail")
+
+
+def graph_ms(fn, reps: int = REPS, inner: int = 20) -> float:
+    """Device time of one fn() call in ms with the host's issue time
+    left out: `inner` calls captured into one CUDA graph (after a
+    warm-up on a side stream), the graph replayed, the median over
+    `reps` replays bracketed by CUDA events, over `inner`. Between two
+    captured kernels the card spends only its own launch gap."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    # The captured calls' outputs live in the graph's own memory pool:
+    # free the graph and hand the pool back before the later phases.
+    del graph
+    torch.cuda.empty_cache()
     return statistics.median(times)
 
 
@@ -510,31 +566,75 @@ def ring_checks(rng, t, diff: Diff) -> None:
                                    plain(*args))
 
 
-def synthetic_checks(dev, diff: Diff) -> None:
-    """Seeded inputs beyond what the streams reach: rice16 and
-    rice16_flat with W 8 and 16 over random windows with escape,
-    invalid and skip groups; lpc2 and lpc2w as ring_checks says;
-    lpc2w33, lpc and lpc64 with orders up to the history and the whole
-    shift range; packtail over all four stereo modes, wasted bits and
-    both containers."""
+def misaligned(a: np.ndarray, dev):
+    """A contiguous int32 copy of `a` on `dev` whose data starts 4 bytes
+    past a 16-byte boundary: a view at an odd offset into a larger
+    allocation."""
+    flat = torch.empty(a.size + 1, dtype=torch.int32, device=dev)
+    view = flat[1:].view(a.shape)
+    view.copy_(torch.as_tensor(a))
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+def streaming_checks(dev, diff: Diff, rice_shapes, tail_shapes) -> list:
+    """rice16, rice16_flat and packtail bit for bit against their plain
+    versions on kernel_inputs' seeded inputs (the generators of the CPU
+    tests): rice16 in both modes (the adversarial one: k 0-63, skips
+    0-8, sparse windows) at each (W, Ssort, p-rows) of rice_shapes, in
+    the rows layout, in the flat one (NGp = Ssort) and with win and meta
+    at an odd offset (the kernel's 4-byte copies), and at an NGp that is
+    not a multiple of 4; packtail at each (Fp, Bp) of tail_shapes and at
+    Fp 1 and Bp not a multiple of 4 or 8, in both containers, with two
+    row indices out of range (clamped) and with the stack at an odd
+    offset (the kernel's scalar path). Returns what was checked."""
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    done = []
+    for W, Ssort, GP1 in [*rice_shapes, (8, 130, 3), (16, 258, 1)]:
+        for adversarial in (False, True):
+            win, meta = rice_groups(rng, W, GP1 * Ssort, adversarial)
+            what = (f"W={W} Ssort={Ssort} NGp={GP1 * Ssort}"
+                    f"{' adversarial' if adversarial else ''}")
+            w_t, m_t = t(win.view(np.int32)), t(meta)
+            diff.check("rice16", what,
+                       rice16_unpack_rows(w_t, m_t, Ssort=Ssort),
+                       rice16_unpack_rows_ref(w_t, m_t, Ssort=Ssort))
+            diff.check("rice16_flat", what, rice16_unpack(w_t, m_t),
+                       rice16_unpack_ref(w_t, m_t))
+            w_o = misaligned(win.view(np.int32), dev)
+            m_o = misaligned(meta, dev)
+            diff.check("rice16", f"{what} at an odd offset",
+                       rice16_unpack_rows(w_o, m_o, Ssort=Ssort),
+                       rice16_unpack_rows_ref(w_o, m_o, Ssort=Ssort))
+            done.append(what)
+    for Fp, Bp in [*tail_shapes, (1, 4096), (5, 4095), (7, 4092), (3, 100)]:
+        for cb in (16, 8):
+            stack, inv, wasted, chcode = packtail_inputs(rng, Fp, Bp)
+            inv[0], inv[-1] = -5, stack.shape[0] + 3
+            what = f"Fp={Fp} Bp={Bp} container {cb}"
+            args = (t(stack), t(inv), t(wasted), t(chcode))
+            diff.check("packtail", what,
+                       packtail(*args, Fp=Fp, container_bits=cb),
+                       packtail_ref(*args, Fp=Fp, container_bits=cb))
+            args = (misaligned(stack, dev), *args[1:])
+            diff.check("packtail", f"{what}, stack at an odd offset",
+                       packtail(*args, Fp=Fp, container_bits=cb),
+                       packtail_ref(*args, Fp=Fp, container_bits=cb))
+            done.append(what)
+    return done
+
+
+def synthetic_checks(dev, diff: Diff, rice_shapes, tail_shapes) -> list:
+    """Seeded inputs beyond what the streams reach: rice16, rice16_flat
+    and packtail as streaming_checks says, at the bench chunks' shapes
+    rice_shapes and tail_shapes and at odd ones; lpc2 and lpc2w as
+    ring_checks says; lpc2w33, lpc and lpc64 with orders up to the
+    history and the whole shift range. Returns streaming_checks'
+    list."""
+    done = streaming_checks(dev, diff, rice_shapes, tail_shapes)
     rng = np.random.default_rng(2024)
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    for W, Ssort, GP1 in ((8, 1024, 6), (16, 384, 5)):
-        NG = GP1 * Ssort
-        win = rng.integers(0, 1 << 32, (W, NG), dtype=np.uint32)
-        k6 = rng.integers(0, 32, NG)
-        k6[rng.random(NG) < 0.1] = K2_ESCAPE
-        k6[rng.random(NG) < 0.1] = K2_INVALID
-        meta = (rng.integers(0, 32, NG) | (k6 << 5)
-                | (rng.integers(0, 32, NG) << 11)
-                | (np.where(rng.random(NG) < 0.05,
-                            rng.integers(0, 9, NG), 0) << 16))
-        w_t, m_t = t(win.view(np.int32)), t(meta.astype(np.int32))
-        diff.check("rice16", f"synthetic W={W}",
-                   rice16_unpack_rows(w_t, m_t, Ssort=Ssort),
-                   rice16_unpack_rows_ref(w_t, m_t, Ssort=Ssort))
-        diff.check("rice16_flat", f"synthetic W={W}", rice16_unpack(w_t, m_t),
-                   rice16_unpack_ref(w_t, m_t))
     ring_checks(rng, t, diff)
     for hist in (8, 16, 32):
         for B in (640, 1152):
@@ -558,16 +658,7 @@ def synthetic_checks(dev, diff: Diff) -> None:
             name = LPC_ROWS_KERNEL[args[0].dtype]
             diff.check(name, f"synthetic B={B}", lpc_reconstruct(*args),
                        lpc_reconstruct_ref(*args))
-    Fp, Bp, rows = 64, 384, 129
-    for cb in (16, 8):
-        args = (t(rng.integers(-(1 << 15), 1 << 15, (rows, Bp))
-                  .astype(np.int32)),
-                t(rng.integers(0, rows, 2 * Fp).astype(np.int32)),
-                t(rng.integers(0, 5, 2 * Fp).astype(np.int32)),
-                t(rng.choice([1, 8, 9, 10], Fp).astype(np.int32)))
-        diff.check("packtail", f"synthetic container {cb}",
-                   packtail(*args, Fp=Fp, container_bits=cb),
-                   packtail_ref(*args, Fp=Fp, container_bits=cb))
+    return done
 
 
 # The card's peaks for the bound (one H100 SXM at 700 W, from its
@@ -585,14 +676,21 @@ OPS_PER_OUT = {"rice16": 8, "rice16_flat": 8, "packtail": 8}
 
 def bound(name: str, inputs, out) -> tuple:
     """(the least time in ms the card could take for the call, "bytes"
-    or "operations"): each tensor input read once and the output
-    written once at HBM_BYTES_S, against the call's operations at
-    OPS_S. A recurrence over rows [B, n] with hist taps does a multiply
-    and an add a tap, a shift and an add a step; the others
-    OPS_PER_OUT a output element."""
+    or "operations"): each tensor input read once (of packtail's stack,
+    the rows its inv names) and the output written once at
+    HBM_BYTES_S, against the call's operations at OPS_S. A recurrence
+    over rows [B, n] with hist taps does a multiply and an add a tap, a
+    shift and an add a step; the others OPS_PER_OUT a output
+    element."""
     nbytes = sum(t.numel() * t.element_size() for t in inputs
                  if isinstance(t, torch.Tensor))
     nbytes += out.numel() * out.element_size()
+    if name == "packtail":
+        # Only the stack rows that inv names need reading: the padded
+        # frames of a decode_to_device chunk all name the dead row.
+        stack, inv = inputs[0], inputs[1]
+        used = torch.unique(inv.clamp(0, stack.shape[0] - 1)).numel()
+        nbytes -= (stack.shape[0] - used) * stack.shape[1] * 4
     if name in OPS_PER_OUT:
         ops = OPS_PER_OUT[name] * out.numel()
     else:
@@ -604,27 +702,99 @@ def bound(name: str, inputs, out) -> tuple:
 
 
 def path_times(name: str, chunks, line: str) -> None:
-    """The LPC kernel of a bench stream's decode_to_device path timed on
-    each LPC class of each chunk that path reconstructs (the parallel
-    scan's ranges), in ns a step, with the sum per call against its
-    bound."""
-    total = bnd = 0.0
-    parts = []
+    """The kernels of a bench stream's decode_to_device path timed on
+    each chunk that path reconstructs (the parallel scan's ranges):
+    rice16 and, where the chunk takes it, packtail on the chunk (from a
+    CUDA graph, graph_ms), and the LPC kernel on each LPC class of the
+    chunk, in ns a step; for each kernel the sum per call against the
+    sum of its bounds."""
+    calls = {}
     for i, d in enumerate(chunks):
+        g = d["geom"]
+        calls.setdefault("rice16", []).append((
+            f"chunk {i} NGp {g.NGp}", (d["win"], d["meta"]),
+            lambda d=d, g=g: rice16_unpack_rows(d["win"], d["meta"],
+                                                Ssort=g.Ssort)))
+        if g.C == 2 and d["cb"] in (8, 16):
+            calls.setdefault("packtail", []).append((
+                f"chunk {i} Fp {g.Fp}", (d["stack"], *d["tail"]),
+                lambda d=d, g=g: packtail(d["stack"], *d["tail"], Fp=g.Fp,
+                                          container_bits=d["cb"])))
         for cname, args in d["lpc"].items():
-            ms = cuda_ms(lambda a=args, k=d["lpc_name"]:
-                         rt.LPC_KERNELS[k](*a))
-            b_ms, _ = bound(d["lpc_name"], args,
-                            rt.LPC_KERNELS[d["lpc_name"]](*args))
+            B, n = args[0].shape
+            calls.setdefault(d["lpc_name"], []).append((
+                f"chunk {i} {cname} [{B}, {n}]", args,
+                lambda a=args, k=d["lpc_name"]: rt.LPC_KERNELS[k](*a)))
+    for kernel, parts in calls.items():
+        total = bnd = 0.0
+        text = []
+        for label, inputs, fn in parts:
+            ms = graph_ms(fn) if kernel in STREAMING else cuda_ms(fn)
+            b_ms, _ = bound(kernel, inputs, fn())
             total += ms
             bnd += b_ms
-            B, n = args[0].shape
-            parts.append(f"chunk {i} {cname} [{B}, {n}] {ms:.4f} ms "
-                         f"= {ms / B * 1e6:.1f} ns a step")
-    say("kernels", f"{chunks[0]['lpc_name']} on {name}'s decode_to_device "
-        f"chunks: " + "; ".join(parts) + f"; {len(parts)} launches, "
-        f"{total:.4f} ms a call against a bound of {bnd:.4f} ms (median "
-        f"of {REPS} batches each, CUDA events) on {line}")
+            step = (f" = {ms / inputs[0].shape[0] * 1e6:.1f} ns a step"
+                    if kernel not in OPS_PER_OUT else
+                    f" (bound {b_ms:.4f} ms)")
+            text.append(f"{label} {ms:.4f} ms{step}")
+        say("kernels", f"{kernel} on {name}'s decode_to_device chunks: "
+            + "; ".join(text) + f"; {len(parts)} launches, {total:.4f} ms "
+            f"a call against a bound of {bnd:.4f} ms ({100 * bnd / total:.1f} "
+            f"% of it; median of {REPS} "
+            f"{'graph replays' if kernel in STREAMING else 'batches'} each, "
+            f"CUDA events) on {line}")
+
+
+def compare_phase(csrc: str, ins: dict, path_ins: dict, line: str) -> None:
+    """rice16 and packtail of another source tree (csrc, built by
+    tools/kernel_ab.py) against this checkout's, on each bench stream's
+    whole-stream chunk and on each chunk its decode_to_device
+    reconstructs: equal outputs, then both timed from CUDA graphs in
+    turns (other, this, this, other), and summed over each call's
+    chunks against the summed bound."""
+    lib = kernel_ab.load(csrc, os.path.join(_kernels.BUILD_DIR, "compare"))
+    sums = {}
+    for name in BENCH:
+        for what, d in (("whole-stream chunk", ins[name]),
+                        *((f"chunk {i}", c)
+                          for i, c in enumerate(path_ins[name]))):
+            g = d["geom"]
+            pairs = {"rice16": (
+                lambda d=d, g=g: kernel_ab.rice16(lib, d["win"], d["meta"],
+                                                  g.Ssort),
+                lambda d=d, g=g: rice16_unpack_rows(d["win"], d["meta"],
+                                                    Ssort=g.Ssort),
+                (d["win"], d["meta"]))}
+            if g.C == 2 and d["cb"] in (8, 16):
+                kw = dict(Fp=g.Fp, container_bits=d["cb"])
+                pairs["packtail"] = (
+                    lambda d=d, kw=kw: kernel_ab.packtail(
+                        lib, d["stack"], *d["tail"], **kw),
+                    lambda d=d, kw=kw: packtail(d["stack"], *d["tail"], **kw),
+                    (d["stack"], *d["tail"]))
+            for kernel, (other, this, inputs) in pairs.items():
+                got, want = this(), other()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{kernel} on {name} {what}: this "
+                                         f"build differs from {csrc}'s")
+                t = [graph_ms(f) for f in (other, this, this, other)]
+                b_ms, _ = bound(kernel, inputs, got)
+                say("compare", f"{kernel} on {name} {what}: {csrc}'s "
+                    f"{t[0]:.4f} / {t[3]:.4f} ms, this checkout's "
+                    f"{t[1]:.4f} / {t[2]:.4f} ms (in turns, median of {REPS} "
+                    f"graph replays each, CUDA events), bound {b_ms:.4f} ms, "
+                    f"outputs equal; on {line}")
+                if what.startswith("chunk"):
+                    acc = sums.setdefault((name, kernel), [0.0, 0.0, 0.0, 0])
+                    acc[0] += (t[0] + t[3]) / 2
+                    acc[1] += (t[1] + t[2]) / 2
+                    acc[2] += b_ms
+                    acc[3] += 1
+    for (name, kernel), (o, n, b, k) in sums.items():
+        say("compare", f"{kernel} on {name}'s {k} decode_to_device chunks, "
+            f"summed a call (mean of the two turns): {csrc}'s {o:.4f} ms, "
+            f"this checkout's {n:.4f} ms, bound {b:.4f} ms "
+            f"({100 * b / o:.1f} % / {100 * b / n:.1f} % of it); on {line}")
 
 
 def hist32_inputs(dev) -> dict:
@@ -1281,6 +1451,11 @@ def cli_and_profile_phase(want: np.ndarray, tmp: str, line: str) -> None:
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--compare-csrc", metavar="CSRC",
+                    help="also time another source tree's rice16 and "
+                    "packtail beside this checkout's (compare_phase)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         sys.exit(1)
@@ -1349,7 +1524,15 @@ def main() -> None:
                                safe_lpc=True)
     for name, (data, _) in corpus.items():
         rows_lpc_checks(dev, diff, f"{name} rows plan", build_plan(data))
-    synthetic_checks(dev, diff)
+    # The streaming kernels' synthetic inputs at the bench chunks'
+    # shapes: each stream's whole-stream chunk and first path chunk.
+    firsts = [(d["geom"], d["cb"]) for name in BENCH
+              for d in (ins[name], path_ins[name][0])]
+    streamed = synthetic_checks(
+        dev, diff, sorted({(g.W, g.Ssort, g.NGp // g.Ssort)
+                           for g, _ in firsts}),
+        sorted({(g.Fp, g.Bp) for g, cb in firsts
+                if g.C == 2 and cb in (8, 16)}))
     torch.cuda.synchronize()
     for name, d in ins.items():
         g = d["geom"]
@@ -1363,6 +1546,9 @@ def main() -> None:
         say("kernels", f"{name} rows-engine plan: LPC classes " + ", ".join(
             f"{c} rows {list(a[0].shape)} {a[0].dtype}"
             for c, a in cls.items()))
+    say("kernels", f"rice16, rice16_flat and packtail bit-exact on seeded "
+        f"inputs: {'; '.join(streamed)} (rice16 also with win and meta, "
+        f"packtail with the stack, at an odd offset)")
     say("kernels", f"bit-exact on the bench chunks, their parallel-scan "
         f"chunks, {len(corpus)} corpus chunks, the rows-engine plans of "
         f"the bench and corpus streams and synthetic inputs; max |err| "
@@ -1403,23 +1589,33 @@ def main() -> None:
     for name in KERNELS:
         kern, plain = timed[name]
         plain_reps = PLAIN_LPC_REPS if name in ("lpc", "lpc64") else REPS
-        times[name] = (cuda_ms(kern), cuda_ms(plain, plain_reps))
+        times[name] = (graph_ms(kern) if name in STREAMING else cuda_ms(kern),
+                       cuda_ms(plain, plain_reps))
         bounds[name] = bound(name, timed_in[name], kern())
         where = timed_on.get(name, "bench16")
         shape = ""
+        if name in STREAMING:
+            shape = (f" (from a CUDA graph of 20 calls; back to back from "
+                     f"Python {cuda_ms(kern):.4f} ms, which is the host's "
+                     f"issue time where it exceeds the kernel's)")
         if name in lpc_args:
             B, n = lpc_args[name][0].shape
             shape = (f" (rows [{B}, {n}] {lpc_args[name][0].dtype}, hist "
                      f"{hist_of(name, lpc_args[name][1])}: "
                      f"{times[name][0] / B * 1e6:.1f} ns per step)")
         say("kernels", f"{name} at {where} shapes{shape}: kernel "
-            f"{times[name][0]:.4f} ms (median of {REPS} batches), plain "
+            f"{times[name][0]:.4f} ms (median of {REPS} "
+            f"{'replays' if name in STREAMING else 'batches'}), plain "
             f"PyTorch {times[name][1]:.4f} ms (median of {plain_reps} "
             f"batches); per call, CUDA events; bound "
-            f"{bounds[name][0]:.4f} ms by {bounds[name][1]}; on {line}")
+            f"{bounds[name][0]:.4f} ms by {bounds[name][1]} "
+            f"({100 * bounds[name][0] / times[name][0]:.1f} % of it); on "
+            f"{line}")
     extra_times(diff, hist32_inputs(dev), rows_ins, safe_ins, line)
     for name in BENCH:
         path_times(name, path_ins[name], line)
+    if args.compare_csrc:
+        compare_phase(args.compare_csrc, ins, path_ins, line)
 
     # ---- the main path, counted: each bench stream's own run ----
     launches = {}

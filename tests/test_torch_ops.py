@@ -38,34 +38,47 @@ def _first_chunk(data):
     return ck
 
 
-def _random_groups(rng, W, NG):
+def _random_groups(rng, W, NG, adversarial=False):
     """Random windows and meta words with Rice, escape, invalid and
-    skip groups (the group-table mix of test_kernels.py)."""
+    skip groups (the group-table mix of test_kernels.py); adversarial:
+    the whole 6-bit k, skips 0-8 and sparse windows whose unary runs
+    cross words (zflac_tpu_torch/tools/kernel_inputs.py)."""
     from zflac_tpu.ops.rice16 import K2_ESCAPE, K2_INVALID
-    win = rng.integers(0, 1 << 32, (W, NG), dtype=np.uint32)
-    k6 = rng.integers(0, 32, NG)
-    k6[rng.random(NG) < 0.1] = K2_ESCAPE
-    k6[rng.random(NG) < 0.1] = K2_INVALID
-    depth = rng.integers(0, 32, NG)
-    skip = np.where(rng.random(NG) < 0.05, rng.integers(0, 9, NG), 0)
-    pos0 = rng.integers(0, 32, NG)
-    meta = (pos0 | (k6 << 5) | (depth << 11) | (skip << 16)).astype(np.int32)
-    return win, meta
+    from zflac_tpu_torch.tools import kernel_inputs
+    assert (kernel_inputs.K2_ESCAPE, kernel_inputs.K2_INVALID) == (
+        K2_ESCAPE, K2_INVALID)
+    return kernel_inputs.rice_groups(rng, W, NG, adversarial)
 
 
-@pytest.mark.parametrize("W,Ssort,GP1", [(8, 1024, 2), (16, 1024, 2),
-                                         (8, 384, 2), (16, 256, 2)])
-def test_rice16_matches_jax(W, Ssort, GP1):
+# (W, Ssort, GP1, adversarial); the first four keep their ids.
+_RICE_CASES = [
+    *(pytest.param(W, S, G, False, id=f"{W}-{S}-{G}")
+      for W, S, G in ((8, 1024, 2), (16, 1024, 2), (8, 384, 2),
+                      (16, 256, 2))),
+    *(pytest.param(W, S, G, True, id=f"{W}-{S}-{G}-adversarial")
+      for W, S, G in ((8, 1024, 2), (16, 1024, 2), (8, 384, 3),
+                      (16, 256, 3))),
+]
+
+
+@pytest.mark.parametrize("W,Ssort,GP1,adversarial", _RICE_CASES)
+def test_rice16_matches_jax(W, Ssort, GP1, adversarial):
     """rice16 plain version == unpack16_rows_math and the Pallas rows
     kernel in interpret mode (4-D form when Ssort % 1024 == 0, 2-D
-    form otherwise), over escape, invalid and skip groups."""
+    form otherwise), over escape, invalid and skip groups, and in the
+    adversarial cases over Rice parameters up to 61 and unary runs
+    across words and past the read-position bound."""
     from zflac_tpu.ops.rice16 import (rice16_unpack_rows_inline,
                                       unpack16_rows_math)
     from zflac_tpu_torch.ops.rice16 import (rice16_unpack_rows,
                                             rice16_unpack_rows_ref)
 
-    rng = np.random.default_rng(W * 1000 + Ssort)
-    win, meta = _random_groups(rng, W, GP1 * Ssort)
+    rng = np.random.default_rng(W * 1000 + Ssort + 7 * adversarial)
+    win, meta = _random_groups(rng, W, GP1 * Ssort, adversarial)
+    if adversarial:
+        k6 = (meta >> 5) & 63
+        assert (k6 > 32).any() and (k6 < 32).any() and \
+            ((meta >> 16) & 31).max() == 8 and (win == 0).all(axis=0).any()
     jw, jm = jnp.asarray(win), jnp.asarray(meta[None, :])
     want = np.asarray(jax.jit(
         lambda w, m: unpack16_rows_math(w, m, Ssort=Ssort))(jw, jm))
@@ -188,33 +201,71 @@ def test_fixed_integrate_matches_jax(orders):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _jax_packtail_math(stack, inv, wasted, chcode, cb):
+    """The JAX package's XLA stereo tail (zflac_tpu/runtime/device.py
+    _reconstruct_pack2_core, use_pallas=False: the plane gathers,
+    decorrelate2, pack2ch) before the bitcast, on the same arrays."""
+    from zflac_tpu import format as fmt
+    stack, inv, wasted, chcode = map(jnp.asarray, (stack, inv, wasted,
+                                                  chcode))
+    c0 = stack[inv[0::2]] << wasted[0::2][:, None]
+    c1 = stack[inv[1::2]] << wasted[1::2][:, None]
+    mode = chcode[:, None]
+    mid = (c0 << 1) | (c1 & 1)
+    new0 = jnp.where(
+        mode == fmt.CH_SIDE_RIGHT, c0 + c1,
+        jnp.where(mode == fmt.CH_MID_SIDE, (mid + c1) >> 1, c0))
+    new1 = jnp.where(
+        mode == fmt.CH_LEFT_SIDE, c0 - c1,
+        jnp.where(mode == fmt.CH_MID_SIDE, (mid - c1) >> 1, c1))
+    if cb == 16:
+        return np.asarray((new0 & 0xFFFF) | (new1 << 16))
+    return np.asarray(((new0 & 0xFF) | (new1 << 8)).astype(jnp.int16))
+
+
 @pytest.mark.parametrize("name", ["stereo independent", "stereo left_side",
                                   "stereo side_right", "stereo mid_side",
-                                  "wasted bits", "bps 8"])
+                                  "wasted bits", "bps 8",
+                                  "synthetic container 16",
+                                  "synthetic container 8"])
 def test_packtail_matches_jax(name, corpus):
     """packtail plain version == the Pallas packtail kernel in
     interpret mode on the JAX stage="transpose" stack of a real chunk
-    (all four stereo modes, wasted bits, containers 16 and 8)."""
+    (all four stereo modes, wasted bits, containers 16 and 8), and on
+    synthetic stacks (kernel_inputs.packtail_inputs: int32 values that
+    wrap, an inv permutation, wasted amounts -3..40, every channel
+    code), also against the JAX package's XLA tail math."""
     from zflac_tpu import format as fmt
     from zflac_tpu.ops.packtail import packtail_inline
     from zflac_tpu.runtime.device import _reconstruct_pack2_core
     from zflac_tpu_torch.ops.packtail import packtail, packtail_ref
+    from zflac_tpu_torch.tools.kernel_inputs import packtail_inputs
 
-    ck = _first_chunk(corpus[name][0])
-    cb = fmt.container_bits(ck.bits_per_sample)
-    spec = ck.spec_key()
-    Fp, Sp = spec[0], spec[1]
-    off = ck.off
-    buf = jnp.asarray(ck.device_buf)
+    if name.startswith("synthetic"):
+        cb = int(name.split()[-1])
+        Fp = 12
+        stack, inv, wasted, chcode = packtail_inputs(
+            np.random.default_rng(cb), Fp, 256)
+        assert wasted.min() < 0 and wasted.max() > 31
+        assert set(chcode) == {1, 8, 9, 10}
+        want = _jax_packtail_math(stack, inv, wasted, chcode, cb)
+    else:
+        ck = _first_chunk(corpus[name][0])
+        cb = fmt.container_bits(ck.bits_per_sample)
+        spec = ck.spec_key()
+        Fp, Sp = spec[0], spec[1]
+        off = ck.off
+        buf = jnp.asarray(ck.device_buf)
 
-    stack = np.asarray(jax.jit(lambda b: _reconstruct_pack2_core(
-        b, spec=spec, num_channels=2, container_bits=cb,
-        do_decorrelate=ck.do_decorrelate, use_pallas=False,
-        stage="transpose"))(buf))
-    inv = ck.buf[off["inv"]:off["inv"] + Sp]
-    wasted = ck.buf[off["wasted"]:off["wasted"] + Sp]
-    chcode = ck.buf[off["chcode"]:off["chcode"] + Fp]
-    want = np.asarray(packtail_inline(
+        stack = np.asarray(jax.jit(lambda b: _reconstruct_pack2_core(
+            b, spec=spec, num_channels=2, container_bits=cb,
+            do_decorrelate=ck.do_decorrelate, use_pallas=False,
+            stage="transpose"))(buf))
+        inv = ck.buf[off["inv"]:off["inv"] + Sp]
+        wasted = ck.buf[off["wasted"]:off["wasted"] + Sp]
+        chcode = ck.buf[off["chcode"]:off["chcode"] + Fp]
+        want = None
+    want_k = np.asarray(packtail_inline(
         jnp.asarray(stack), jnp.asarray(inv), jnp.asarray(wasted),
         jnp.asarray(chcode), Fp=Fp, container_bits=cb, interpret=True))
 
@@ -223,9 +274,11 @@ def test_packtail_matches_jax(name, corpus):
     got = packtail_ref(*args, Fp=Fp, container_bits=cb)
     if cb == 8:
         assert got.dtype == torch.int16
-        want = want.astype(np.int16)
+        want_k = want_k.astype(np.int16)
     else:
         assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), want)
+    if want is not None:
+        np.testing.assert_array_equal(want_k, want)
+    np.testing.assert_array_equal(got.numpy(), want_k)
     np.testing.assert_array_equal(
-        packtail(*args, Fp=Fp, container_bits=cb).numpy(), want)
+        packtail(*args, Fp=Fp, container_bits=cb).numpy(), want_k)

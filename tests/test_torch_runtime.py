@@ -643,3 +643,32 @@ def test_stage_timers_sum_repeated_stages():
     assert t.times["scan"] >= 0.006
     assert repr(t).startswith("StageTimers(scan=")
     assert get_logger("shard").name.endswith("shard")
+
+
+def test_kernel_sass_counts_store_runs():
+    """tools/kernel_sass.py on a cuobjdump-style listing: the body of
+    the longest loop without its inner loop, cut after each branch into
+    runs, each run's outputs counted from its stores' widths (a 16-byte
+    store of int16 samples holds 8), NOPs and the trailing self-branch
+    left out."""
+    from zflac_tpu_torch.tools.kernel_sass import long_loops, store_runs
+    listing = "\n".join(
+        f"        /*{a:04x}*/  {ins} ;" for a, ins in enumerate([
+            "MOV R1, c[0x0][0x28]",
+            "LDG.E.128 R4, [R2.64]",            # outer loop starts here
+            "IADD3 R0, R0, 0x1, RZ",            # inner loop
+            "@P0 BRA 0x2",
+            "STG.E.EF.128 [R2.64], R4",
+            "@P1 BRA 0x7",
+            "STG.E.U16 [R2.64], R0",
+            "ISETP.GE.AND P0, PT, R0, 0x10, PT",
+            "@!P0 BRA 0x1",
+            "EXIT",
+            "BRA 0xa",
+            "NOP",
+        ]))
+    # Addresses step by 1 here, so a branch's target is an index.
+    total, body, runs = store_runs(listing, 2)
+    assert (total, body) == (11, 6)
+    assert runs == [(3, 8), (3, 1)]
+    assert [n for n, _ in long_loops(listing, least=2)] == [8]
