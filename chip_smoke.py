@@ -92,7 +92,25 @@ build/zflac_tpu_torch/, then:
      this process with the launches counted;
  13. profile: one decode of bench16 in a process with
      ZFLAC_TPU_PROFILE set; the trace file must hold the region's label
-     and one of the port's kernels.
+     and one of the port's kernels;
+ 14. tools: python3 -m zflac_tpu_torch.tools.bench (its frames must be
+     bench16's, its MD5 verified, its gpu_chip_msps positive) and
+     tools.bench_kernels as processes, one after the other (bench's
+     gpu_chip_msps[_24] within 25 % of bench_kernels' stream rows,
+     the same graphs timed in another process); the stage
+     profile of reconstruct_pack2 on bench16 and bench24
+     (tools/profile_pack2.py, every stage from a CUDA graph); the
+     playback example on bench16 as a process (its WAV's payload must
+     equal the encoder's input, exit 0);
+ 15. fuzz: 40 byte mutations of the fuzz's streams through its four
+     entries on the card (tools/fuzz_native.py: only decodes and typed
+     errors; the tolerant decode and pack2's reconstruct_pack2 also run
+     on the CPU, the kernels' plain versions, and must give the same
+     PCM and stats or the same error class), then a synchronize and
+     bench16 through decode_to_device, bit-exact, to show that the
+     CUDA context survived;
+ 16. rice_groups: ops/rice.py's rows_from_groups of bench16 on the card
+     must equal the scan's host rows.
 
 With --compare-csrc CSRC (another checkout's zflac_tpu_torch/csrc, say
 the parent commit's, unpacked under build/), step 4 also builds that
@@ -133,11 +151,10 @@ import zflac_tpu_torch
 from zflac_tpu_torch import _kernels, cli
 from zflac_tpu_torch import format as fmt
 from zflac_tpu_torch.bitio import BitReader
-from zflac_tpu_torch.encoder import EncoderConfig, encode
 from zflac_tpu_torch.errors import InvalidChecksum
 from zflac_tpu_torch.index import build_plan, native_indexer
-from zflac_tpu_torch.index.native_indexer import (decode_cpu_native,
-                                                  pack2_range)
+from zflac_tpu_torch.index.native_indexer import (build_plan_native,
+                                                  decode_cpu_native)
 from zflac_tpu_torch.oracle import parse_metadata
 from zflac_tpu_torch.parallel import make_mesh, reconstruct_sharded
 from zflac_tpu_torch.parallel.distributed import union_chunks
@@ -147,37 +164,31 @@ from zflac_tpu_torch.parallel.shard import (decode_to_device_sharded,
                                             local_arrays, shard_plan,
                                             sharded_to_host)
 from zflac_tpu_torch.result import container_dtype
-from zflac_tpu_torch.testing import correlated_stereo, make_corpus
+from zflac_tpu_torch.testing import make_corpus
 from zflac_tpu_torch.ops.lpc import (KERNEL as LPC_ROWS_KERNEL,
                                      lpc_reconstruct, lpc_reconstruct_ref)
 from zflac_tpu_torch.ops.lpc2 import lpc2_reconstruct_ref
 from zflac_tpu_torch.ops.lpc2w import (lpc2w33_reconstruct_ref,
                                        lpc2w_reconstruct_ref)
 from zflac_tpu_torch.ops.packtail import packtail, packtail_ref
+from zflac_tpu_torch.ops.rice import rows_from_groups
 from zflac_tpu_torch.ops.rice16 import (rice16_unpack, rice16_unpack_ref,
                                         rice16_unpack_rows,
                                         rice16_unpack_rows_ref)
 from zflac_tpu_torch.runtime import decode as rd
 from zflac_tpu_torch.runtime import device as rt
 from zflac_tpu_torch.runtime.reconstruct import lpc_class_inputs
-from zflac_tpu_torch.tools import kernel_ab
+from zflac_tpu_torch.tools import fuzz_native, kernel_ab, profile_pack2
 from zflac_tpu_torch.tools.kernel_inputs import packtail_inputs, rice_groups
 from zflac_tpu_torch.tools.kernel_sass import kernel_name
+from zflac_tpu_torch.tools.streams import (BENCH, BENCH_BLOCK, BY_BPS,
+                                           bench_path, bench_pcm,
+                                           bench_stream, first_chunk)
+from zflac_tpu_torch.utils.cudatime import REPS, cuda_ms, gpu_line, graph_ms
 
-BENCH_BLOCK = 4096
-# name -> (samples per channel, bits per sample, stereo mode, the
-# kernels its decode_to_device path must launch).
-BENCH = {
-    "bench16": (1 << 22, 16, None, ("rice16", "lpc2", "packtail")),
-    "bench24": (1 << 21, 24, None, ("rice16", "lpc2w")),
-    "bench32ms": (1 << 20, 32, "mid_side", ("rice16", "lpc2w33")),
-}
 # The kernels each bench stream's rows-engine path must launch.
 ROWS_PATH = {"bench16": ("lpc",), "bench24": ("lpc64",),
              "bench32ms": ("lpc64",)}
-CACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                     ".bench_cache")
-REPS = 25
 # Batches for the plain lpc and lpc64 (4096 Python-loop steps a call).
 PLAIN_LPC_REPS = 5
 # Frames per chunk for decode_pipelined and stream_decode (8 and 4
@@ -232,45 +243,6 @@ def ptxas_summary() -> list:
     return out
 
 
-def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
-def bench_pcm(name: str) -> np.ndarray:
-    n, bps, _, _ = BENCH[name]
-    return correlated_stereo(n, bps, seed=7)
-
-
-def bench_path(name: str) -> str:
-    n, bps, mode, _ = BENCH[name]
-    return os.path.join(
-        CACHE, f"bench_{n}_{bps}bit_{BENCH_BLOCK}"
-        f"{'_' + mode if mode else ''}.flac")
-
-
-def bench_stream(name: str) -> bytes:
-    """Bench stream `name`, from its cache file when present, else
-    encoded and cached."""
-    n, bps, mode, _ = BENCH[name]
-    path = bench_path(name)
-    if os.path.exists(path):
-        with open(path, "rb") as f:
-            return f.read()
-    cfg = EncoderConfig(block_size=BENCH_BLOCK,
-                        **({"stereo_mode": mode} if mode else {}))
-    data = encode(bench_pcm(name), 44100, bps, cfg)
-    os.makedirs(CACHE, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "wb") as f:
-        f.write(data)
-    os.replace(tmp, path)
-    return data
-
-
 def expected_pcm(pcm: np.ndarray, bps: int) -> np.ndarray:
     """Decoder output for encoder input `pcm`: samples shifted to the
     container's MSBs (zflac.zig:287-306), interleaved."""
@@ -279,80 +251,10 @@ def expected_pcm(pcm: np.ndarray, bps: int) -> np.ndarray:
         container_dtype(bps)).reshape(-1)
 
 
-def first_chunk(data: bytes):
-    br = BitReader(data)
-    info = parse_metadata(br)
-    ck = pack2_range(data, br.pos // 8, len(data), info,
-                     max_frames=1 << 20)
-    if ck is None:
-        raise RuntimeError("pack2 scan declined the stream")
-    return ck
-
-
-def cuda_ms(fn, reps: int = REPS) -> float:
-    """Device time of one fn() call in ms: the median over `reps`
-    batches, each bracketed by CUDA events on the current stream. A
-    batch runs fn() back to back often enough to last about 1 ms, so
-    the card is kept busy and the host's launch latency between calls
-    is not counted as device time."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    inner = max(1, min(100, int(1e-3 / (time.perf_counter() - t))))
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
-
-
 # The kernels whose launch takes less device time than the host takes
 # to issue it from Python, at the main path's shapes: their batches of
 # back-to-back calls measure the host, so they are timed from a graph.
 STREAMING = ("rice16", "rice16_flat", "packtail")
-
-
-def graph_ms(fn, reps: int = REPS, inner: int = 20) -> float:
-    """Device time of one fn() call in ms with the host's issue time
-    left out: `inner` calls captured into one CUDA graph (after a
-    warm-up on a side stream), the graph replayed, the median over
-    `reps` replays bracketed by CUDA events, over `inner`. Between two
-    captured kernels the card spends only its own launch gap."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    # The captured calls' outputs live in the graph's own memory pool:
-    # free the graph and hand the pool back before the later phases.
-    del graph
-    torch.cuda.empty_cache()
-    return statistics.median(times)
 
 
 class Diff:
@@ -1450,6 +1352,111 @@ def cli_and_profile_phase(want: np.ndarray, tmp: str, line: str) -> None:
         f"zflac_tpu_torch.decode and the kernels {found}")
 
 
+# ---------------------------------------------------------------------
+# Phases 14-16: the measuring and checking tools, the fuzz on the card,
+# and the Rice group-table math.
+# ---------------------------------------------------------------------
+
+# Fuzz iterations on the card, and the A-B-A reps of the bench process.
+FUZZ_ITERS = 40
+TOOL_REPS = "5"
+
+
+def last_json(out: str) -> dict:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def tools_phase(want16: np.ndarray, tmp: str, line: str) -> None:
+    """The bench and bench_kernels tools as processes on the card, one
+    after the other; the stage profile of bench16 and bench24 here; the
+    playback example as a process on bench16 at its default period."""
+    py = [sys.executable, "-m"]
+    (out,) = run_procs("tools bench", [[*py, "zflac_tpu_torch.tools.bench",
+                                        "--reps", TOOL_REPS]])
+    b = last_json(out)
+    frames = BENCH["bench16"][0] // BENCH_BLOCK
+    if b["frames"] != frames or not b["md5_verified"] or \
+            not b["gpu_chip_msps"] > 0 or not b["gpu_chip_msps_24"] > 0 or \
+            b["engine"] != "torch":
+        raise AssertionError(f"tools bench: {b}")
+    say("tools", f"python3 -m zflac_tpu_torch.tools.bench --reps "
+        f"{TOOL_REPS}: {json.dumps(b)}; on {line}")
+    (out,) = run_procs("tools bench_kernels", [[
+        *py, "zflac_tpu_torch.tools.bench_kernels"]])
+    k = last_json(out)
+    if not all(k[r]["pack2_msps"] > 0 for r in ("stream16", "stream24")) \
+            or not all(k["kernels"][f"{n}_ms"] > 0
+                       for n in ("rice16", "lpc2", "lpc2w")):
+        raise AssertionError(f"tools bench_kernels: {k}")
+    # bench's gpu_chip_msps[_24] are bench_kernels' stream rows, timed
+    # in another process: the two must agree.
+    for key, row in (("gpu_chip_msps", "stream16"),
+                     ("gpu_chip_msps_24", "stream24")):
+        ratio = b[key] / k[row]["pack2_msps"]
+        if not 0.8 <= ratio <= 1.25:
+            raise AssertionError(f"tools: bench {key} {b[key]} against "
+                                 f"bench_kernels {row} "
+                                 f"{k[row]['pack2_msps']}")
+    say("tools", f"python3 -m zflac_tpu_torch.tools.bench_kernels: "
+        f"{json.dumps(k)}; on {line}")
+    for bps in (16, 24):
+        p = profile_pack2.profile(bps, BENCH[BY_BPS[bps]][0], CARD)
+        st = p["stages_ms"]
+        if list(st) != list(profile_pack2.STAGES):
+            raise AssertionError(f"profile_pack2 --bps {bps}: {p}")
+        say("tools", f"profile_pack2 --bps {bps} ({p['tail']} tail), ms "
+            f"cumulative / delta from CUDA graphs: " + ", ".join(
+                f"{n} {v['cumulative']:.4f} / {v['delta']:+.4f}"
+                for n, v in st.items())
+            + f"; full {p['msps_full']:.1f} Msamples/s; on {line}")
+    wav = os.path.join(tmp, "play.wav")
+    (out,) = run_procs("playback", [[
+        *py, "zflac_tpu_torch.examples.playback", bench_path("bench16"),
+        "--out", wav, "--device", CARD]])
+    with open(wav, "rb") as f:
+        riff = f.read()
+    if riff[44:] != want16.tobytes():
+        raise AssertionError("playback: the WAV's payload differs from the "
+                             "encoder input")
+    say("tools", f"playback of bench16 on {CARD}: {out.strip()}; WAV "
+        f"payload == encoder input, exit 0")
+
+
+def fuzz_phase(benches: dict) -> None:
+    """The fuzz's four entries on the card in this process, then the
+    CUDA context still works: a synchronize raises nothing and bench16
+    still decodes bit-exact."""
+    a = time.perf_counter()
+    out = fuzz_native.fuzz(FUZZ_ITERS, 0, CARD, log=lambda m: None,
+                           check_device="cpu")
+    wall = time.perf_counter() - a
+    if out["checked"] != FUZZ_ITERS * len(fuzz_native.DEVICE_ENTRIES):
+        raise AssertionError(f"fuzz: {out}")
+    torch.cuda.synchronize()
+    decode_check("bench16 after the fuzz", *benches["bench16"])
+    say("fuzz", f"{FUZZ_ITERS} mutations x {len(fuzz_native.ENTRIES)} "
+        f"entries on {CARD} in {wall:.1f} s: {out} (only decodes and "
+        f"typed errors; the {', '.join(fuzz_native.DEVICE_ENTRIES)} "
+        "entries' PCM and stats, or error class, equal to their plain "
+        "versions' on the CPU); then synchronize clean and bench16 "
+        "bit-exact through decode_to_device")
+
+
+def rice_groups_phase(data: bytes) -> None:
+    """ops/rice.py's group-table math on the card against the scan's
+    host rows of bench16."""
+    plan = build_plan_native(data, emit_groups=True)
+    a = time.perf_counter()
+    rows = rows_from_groups(data, plan, device=CARD)
+    wall = time.perf_counter() - a
+    if not np.array_equal(rows, plan.rows.astype(np.int32)):
+        raise AssertionError("rice_groups: rows_from_groups on the card "
+                             "differs from the scan's rows")
+    say("rice_groups", f"rows_from_groups of bench16 on {CARD}: "
+        f"{rows.shape} rows == the scan's host rows ({wall:.2f} s, host "
+        f"clock, upload and host patching included)")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare-csrc", metavar="CSRC",
@@ -1701,6 +1708,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=_kernels.BUILD_DIR) as tmp:
         distributed_phase(diff, *benches["bench16"], tmp, line)
         cli_and_profile_phase(benches["bench16"][1], tmp, line)
+        t_new = seconds(lambda: tools_phase(benches["bench16"][1], tmp,
+                                            line))
+    t_new += seconds(lambda: fuzz_phase(benches))
+    t_new += seconds(lambda: rice_groups_phase(benches["bench16"][0]))
+    say("device", f"phases tools, fuzz and rice_groups: {t_new:.0f} s")
     say("device", f"{torch.cuda.device_count()} card(s) on the host; total "
         f"{time.perf_counter() - t_streams:.0f} s since the build began")
 

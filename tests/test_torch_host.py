@@ -8,7 +8,6 @@ hierarchy; and its scan library builds safely from two processes at
 once."""
 
 import ast
-import dataclasses
 import os
 import subprocess
 import sys
@@ -35,33 +34,12 @@ from zflac_tpu_torch.oracle import parse_metadata  # noqa: E402
 from zflac_tpu_torch.runtime import device as rt  # noqa: E402
 
 from torch_slice import ALL_STREAMS  # noqa: E402
+from torch_slice import assert_deep_equal as _assert_equal  # noqa: E402
 
 pytestmark = pytest.mark.skipif(
     not jni.native_available(), reason="native indexer unavailable")
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _assert_equal(a, b, what=""):
-    """Deep equality of plans, stream infos and their fields."""
-    if dataclasses.is_dataclass(a):
-        assert type(a).__name__ == type(b).__name__, what
-        for f in dataclasses.fields(a):
-            _assert_equal(getattr(a, f.name), getattr(b, f.name),
-                          f"{what}.{f.name}")
-    elif isinstance(a, np.ndarray):
-        assert a.dtype == b.dtype, what
-        np.testing.assert_array_equal(a, b, err_msg=what)
-    elif isinstance(a, dict):
-        assert a.keys() == b.keys(), what
-        for k in a:
-            _assert_equal(a[k], b[k], f"{what}[{k}]")
-    elif isinstance(a, (tuple, list)):
-        assert len(a) == len(b), what
-        for i, (x, y) in enumerate(zip(a, b)):
-            _assert_equal(x, y, f"{what}[{i}]")
-    else:
-        assert a == b, what
 
 
 def _port_files():
@@ -84,7 +62,13 @@ def test_port_source_imports_nothing_of_the_jax_package():
     assert {"cli.py", os.path.join("utils", "timer.py"),
             os.path.join("utils", "profiler.py"),
             *(os.path.join("parallel", m + ".py") for m in
-              ("__init__", "shard", "longstream", "distributed"))} <= rel
+              ("__init__", "shard", "longstream", "distributed")),
+            os.path.join("ops", "rice.py"),
+            os.path.join("examples", "playback.py"),
+            os.path.join("utils", "cudatime.py"),
+            *(os.path.join("tools", m + ".py") for m in
+              ("bench", "bench_kernels", "profile_pack2", "fuzz_native",
+               "sanitize_run", "bench_ab", "streams"))} <= rel
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -225,7 +209,10 @@ def test_scan_library_builds_from_two_processes_at_once(tmp_path):
                               text=True) for _ in range(2)]
     errs = [p.communicate(timeout=600)[1] for p in procs]
     assert [p.returncode for p in procs] == [0, 0], errs
-    assert sorted(os.listdir(tmp_path)) == [
-        ".lock", ni.LIB_NAME, ni.LIB_NAME + ".stamp"]
-    stamp = (tmp_path / (ni.LIB_NAME + ".stamp")).read_text()
-    assert " ".join(ni.CXX_FLAGS) in stamp and "cpu " in stamp
+    # Under ZFLAC_TPU_SANITIZE (tools/sanitize_run.py) the processes
+    # build the sanitized library, under its own name.
+    name = ni.lib_name(ni.sanitizers())
+    assert sorted(os.listdir(tmp_path)) == [".lock", name, name + ".stamp"]
+    stamp = (tmp_path / (name + ".stamp")).read_text()
+    assert " ".join(ni.cxx_flags(ni.sanitizers())) in stamp
+    assert "cpu " in stamp

@@ -75,17 +75,18 @@ def test_corruption_raises(corpus):
                                   "surround 8ch 24bit"])
 def test_stages_match_jax(name, corpus):
     """The port's stages equal the JAX core truncated at the same
-    point: residual_rows == stage "rows", sorted_stack == stage
-    "transpose", reconstruct_pack2 == the chunk PCM (the packtail
-    kernel's path, the 32-bit container's lpc2w and the general tail
-    for 1, 5 and 8 channels)."""
+    point: residual_rows == stage "rows", class_stack == stage "stack",
+    sorted_stack == stage "transpose", stream_rows == stage "signal",
+    reconstruct_pack2 == the chunk PCM (the packtail kernel's path, the
+    32-bit container's lpc2w and the general tail for 1, 5 and 8
+    channels)."""
     from zflac_tpu import format as fmt
     from zflac_tpu.runtime.device import _reconstruct_pack2_core
 
     ck = _first_chunk(corpus[name][0], max_frames=64, force_fp=64)
     cb = fmt.container_bits(ck.bits_per_sample)
-    stages = ("rows", "transpose", "full")
-    # One compile for the three truncations (XLA shares their prefix).
+    stages = ("rows", "stack", "transpose", "signal", "full")
+    # One compile for the five truncations (XLA shares their prefix).
     want = jax.jit(lambda b: tuple(_reconstruct_pack2_core(
         b, spec=ck.spec_key(), num_channels=ck.C, container_bits=cb,
         do_decorrelate=ck.do_decorrelate, use_pallas=False, stage=stage)
@@ -96,8 +97,14 @@ def test_stages_match_jax(name, corpus):
     assert rt.lpc_kernel(geom, cb) == ("lpc2w" if cb == 32 else "lpc2")
     rows_t = rt.residual_rows(buf, geom)
     np.testing.assert_array_equal(rows_t.numpy(), want["rows"])
+    np.testing.assert_array_equal(
+        rt.class_stack(rows_t, buf, geom, container_bits=cb).numpy(),
+        want["stack"])
     stack = rt.sorted_stack(rows_t, buf, geom, container_bits=cb)
     np.testing.assert_array_equal(stack.numpy(), want["transpose"])
+    inv = rt.tail_inputs(buf, geom)[0]
+    np.testing.assert_array_equal(rt.stream_rows(stack, inv).numpy(),
+                                  want["signal"])
     pcm = rt.reconstruct_pack2(buf, geom, container_bits=cb)
     assert pcm.dtype == getattr(torch, want["full"].dtype.name)
     np.testing.assert_array_equal(pcm.numpy(), want["full"])
@@ -180,7 +187,12 @@ def test_port_imports_no_jax():
             "from zflac_tpu_torch.parallel import shard, longstream, "
             "distributed\n"
             "from zflac_tpu_torch import cli\n"
-            "from zflac_tpu_torch.tools import kernel_sass\n"
+            "from zflac_tpu_torch.tools import kernel_sass, streams, bench, "
+            "bench_kernels, profile_pack2, fuzz_native, sanitize_run, "
+            "bench_ab\n"
+            "from zflac_tpu_torch.ops import rice\n"
+            "from zflac_tpu_torch.utils import cudatime\n"
+            "from zflac_tpu_torch.examples import playback\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules\n"
             "       if m.split('.')[0] in ('jax', 'zflac_tpu')]\n"

@@ -8,6 +8,8 @@ scheduling. test_torch_device.py checks that the groups cover the
 corpus exactly.
 """
 
+import dataclasses
+
 import numpy as np
 
 # Subframe types and their parameters.
@@ -116,3 +118,25 @@ def check_rows_engine(name, corpus):
             want.channels, want.sample_rate, want.bits_per_sample)
         np.testing.assert_array_equal(got.interleaved,
                                       expected_output(pcm, bps))
+
+
+def assert_deep_equal(a, b, what=""):
+    """Deep equality of plans, stream infos and their fields."""
+    if dataclasses.is_dataclass(a):
+        assert type(a).__name__ == type(b).__name__, what
+        for f in dataclasses.fields(a):
+            assert_deep_equal(getattr(a, f.name), getattr(b, f.name),
+                              f"{what}.{f.name}")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype, what
+        np.testing.assert_array_equal(a, b, err_msg=what)
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), what
+        for k in a:
+            assert_deep_equal(a[k], b[k], f"{what}[{k}]")
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b), what
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_deep_equal(x, y, f"{what}[{i}]")
+    else:
+        assert a == b, what

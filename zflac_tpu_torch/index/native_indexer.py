@@ -2,8 +2,9 @@
 (index/native/indexer.cpp): the port's copy of
 zflac_tpu/index/native_indexer.py, built from the port's copy of the
 sources into build/zflac_tpu_torch/native/ under the checkout. It
-produces the same StreamPlan as py_indexer.build_plan and the same
-pack2 buffers as the JAX package's copy (tests/test_torch_host.py)."""
+produces the same StreamPlan as py_indexer.build_plan, the same skim
+plans and the same pack2 buffers as the JAX package's copy
+(tests/test_torch_host.py, tests/test_torch_rice.py)."""
 
 from __future__ import annotations
 
@@ -37,6 +38,14 @@ LIB_NAME = "libzflac_index.so"
 # stamp beside it names the CPU model it was built for.
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++20", "-fwrapv", "-shared",
              "-fPIC")
+# ZFLAC_TPU_SANITIZE=asan,ubsan (any non-empty subset) builds the scan
+# -O1 with those sanitizers into a library of its own beside the
+# production one, which it leaves in place: the checked second pass of
+# tools/sanitize_run.py, which preloads the ASan runtime that an
+# ASan-instrumented library needs. -fwrapv keeps wraparound defined, so
+# UBSan checks only what must never happen: out-of-bounds access,
+# misalignment, bad shifts.
+SANITIZE_ENV = "ZFLAC_TPU_SANITIZE"
 
 _lock = threading.Lock()
 _lib = None
@@ -276,39 +285,67 @@ def _cpu_model() -> str:
     return platform.machine()
 
 
-def _stamp() -> str:
-    return f"g++ {' '.join(CXX_FLAGS)}\ncpu {_cpu_model()}\n"
+def sanitizers() -> str:
+    """The sanitizers ZFLAC_TPU_SANITIZE asks for ("" for none)."""
+    return os.environ.get(SANITIZE_ENV, "")
 
 
-def _fresh(so: str) -> bool:
+def lib_name(sanitize: str) -> str:
+    """The library's file name: LIB_NAME, or a name of its own for a
+    sanitized build."""
+    if not sanitize:
+        return LIB_NAME
+    return f"libzflac_index_{sanitize.replace(',', '_')}.so"
+
+
+def cxx_flags(sanitize: str) -> tuple:
+    """g++'s flags: CXX_FLAGS, or -O1 with the sanitizers."""
+    if not sanitize:
+        return CXX_FLAGS
+    san = sanitize.replace("asan", "address").replace("ubsan", "undefined")
+    return ("-O1", "-g", "-march=native", "-std=c++20", "-fwrapv",
+            f"-fsanitize={san}", "-fno-sanitize-recover=all",
+            "-fno-omit-frame-pointer", "-shared", "-fPIC")
+
+
+def _stamp(flags: tuple) -> str:
+    return f"g++ {' '.join(flags)}\ncpu {_cpu_model()}\n"
+
+
+def _fresh(so: str, flags: tuple) -> bool:
     """The library at `so` is newer than every source and its stamp
     names these flags and this host's CPU."""
     try:
         if os.path.getmtime(so) < max(map(os.path.getmtime, _SRCS)):
             return False
         with open(so + ".stamp") as f:
-            return f.read() == _stamp()
+            return f.read() == _stamp(flags)
     except OSError:
         return False
 
 
-def build(build_dir: str = BUILD_DIR, force: bool = False) -> str:
+def build(build_dir: str = BUILD_DIR, force: bool = False,
+          sanitize: str = None) -> str:
     """Compile the scan library into `build_dir` unless it is fresh
     (or `force`). Returns its path; raises with g++'s stderr when the
-    build fails.
+    build fails. `sanitize` (default: ZFLAC_TPU_SANITIZE) names the
+    sanitizers of a checked build, which goes to its own file.
 
     Processes that build at once take turns on a lock file, so one
     compiles and the others find its result. g++ writes a temporary
     file that is renamed into place, so no process loads a half-written
     library."""
-    so = os.path.join(build_dir, LIB_NAME)
+    if sanitize is None:
+        sanitize = sanitizers()
+    flags = cxx_flags(sanitize)
+    so = os.path.join(build_dir, lib_name(sanitize))
     os.makedirs(build_dir, exist_ok=True)
     with open(os.path.join(build_dir, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if not force and _fresh(so):
+        if not force and _fresh(so, flags):
             return so
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = ["g++", *CXX_FLAGS, "-o", tmp, _SRCS[0]]
+        cmd = ["g++", *flags, "-o", tmp, _SRCS[0]]
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=300)
         if proc.returncode != 0:
@@ -316,7 +353,7 @@ def build(build_dir: str = BUILD_DIR, force: bool = False) -> str:
                                f"{' '.join(cmd)}\n{proc.stderr}")
         os.replace(tmp, so)
         with open(tmp, "w") as f:
-            f.write(_stamp())
+            f.write(_stamp(flags))
         os.replace(tmp, so + ".stamp")
     return so
 
@@ -346,6 +383,15 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint32]
     lib.zfi_index_range.restype = ctypes.c_int
     lib.zfi_index_range.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint64,
+        ctypes.c_uint64, ctypes.POINTER(_Plan), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.zfi_index_skim.restype = ctypes.c_int
+    lib.zfi_index_skim.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+        ctypes.POINTER(_Plan), ctypes.POINTER(ctypes.c_int64)]
+    lib.zfi_skim_range.restype = ctypes.c_int
+    lib.zfi_skim_range.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint64,
         ctypes.c_uint64, ctypes.POINTER(_Plan), ctypes.c_int,
         ctypes.POINTER(ctypes.c_int64)]
@@ -392,8 +438,8 @@ def _as_array(ptr, shape, dtype):
 
 def build_plan_native(data: bytes, check_crc: bool = False,
                       emit_groups: bool = False) -> StreamPlan:
-    """emit_groups: also record the Rice-group offset table consumed by
-    the JAX package's bit-unpack kernel (zflac_tpu/ops/rice.py)."""
+    """emit_groups: also record the Rice-group offset table, which
+    ops/rice.py `rows_from_groups` decodes."""
     lib = _load()
     assert lib is not None
     plan = _Plan()
@@ -405,18 +451,69 @@ def build_plan_native(data: bytes, check_crc: bool = False,
         msg = "frame CRC mismatch" if rc == 9 else ""
         raise ERROR_MAP.get(rc, err.Unimplemented)(msg)
     try:
-        info = StreamInfo(
-            min_block_size=plan.min_block_size,
-            max_block_size=plan.max_block_size,
-            min_frame_size=plan.min_frame_size,
-            max_frame_size=plan.max_frame_size,
-            sample_rate=plan.si_sample_rate,
-            channel_count=plan.si_channels,
-            bits_per_sample=plan.si_bits_per_sample,
-            total_samples=plan.si_total_samples,
-            md5=bytes(bytearray(plan.md5)),
-        )
-        return _plan_to_streamplan(plan, info)
+        return _plan_to_streamplan(plan, _stream_info(plan))
+    finally:
+        lib.zfi_free(ctypes.byref(plan))
+
+
+def _stream_info(plan) -> StreamInfo:
+    """The STREAMINFO fields of a filled native plan."""
+    return StreamInfo(
+        min_block_size=plan.min_block_size,
+        max_block_size=plan.max_block_size,
+        min_frame_size=plan.min_frame_size,
+        max_frame_size=plan.max_frame_size,
+        sample_rate=plan.si_sample_rate,
+        channel_count=plan.si_channels,
+        bits_per_sample=plan.si_bits_per_sample,
+        total_samples=plan.si_total_samples,
+        md5=bytes(bytearray(plan.md5)),
+    )
+
+
+def build_plan_skim(data: bytes, check_crc: bool = False):
+    """Measure-only native index (zfi_index_skim): the StreamPlan
+    carries the Rice-group table, warm-ups, and sparse patches but no
+    residual rows (rows=None). Returns None when skim is unsupported for
+    the stream (wide sample types)."""
+    lib = _load()
+    assert lib is not None
+    plan = _Plan()
+    err_pos = ctypes.c_int64(0)
+    rc = lib.zfi_index_skim(data, len(data), int(check_crc),
+                            ctypes.byref(plan), ctypes.byref(err_pos))
+    if rc == 100:
+        return None
+    if rc != 0:
+        lib.zfi_free(ctypes.byref(plan))
+        msg = "frame CRC mismatch" if rc == 9 else ""
+        raise ERROR_MAP.get(rc, err.Unimplemented)(msg)
+    try:
+        return _plan_to_streamplan(plan, _stream_info(plan))
+    finally:
+        lib.zfi_free(ctypes.byref(plan))
+
+
+def skim_range(data: bytes, start_byte: int, stop_byte: int,
+               info: StreamInfo, check_crc: bool = False):
+    """Skim whole frames in [start_byte, stop_byte) (zfi_skim_range).
+    Returns (skim StreamPlan shard, landed_byte)."""
+    lib = _load()
+    assert lib is not None
+    plan = _Plan()
+    plan.si_sample_rate = info.sample_rate
+    plan.si_channels = info.channel_count
+    plan.si_bits_per_sample = info.bits_per_sample
+    plan.si_total_samples = info.total_samples
+    landed = ctypes.c_int64(-1)
+    rc = lib.zfi_skim_range(data, len(data), start_byte, stop_byte,
+                            ctypes.byref(plan), int(check_crc),
+                            ctypes.byref(landed))
+    try:
+        if rc != 0:
+            msg = "frame CRC mismatch" if rc == 9 else ""
+            raise ERROR_MAP.get(rc, err.Unimplemented)(msg)
+        return _plan_to_streamplan(plan, info), int(landed.value)
     finally:
         lib.zfi_free(ctypes.byref(plan))
 

@@ -210,13 +210,12 @@ def lpc_class_inputs(rows_t, buf, geom: Pack2Geom) -> dict:
             for name, sl in _class_slices(geom) if name in _HIST}
 
 
-def sorted_stack(rows_t, buf, geom: Pack2Geom, *, container_bits: int):
-    """Stage 2 of reconstruct_pack2: every class reconstructed on its
-    static lane slice (const broadcast, verbatim, fixed cumsums, the
-    LPC kernel of lpc_kernel), stacked with one dead zero lane (the
-    `inv` sentinel for padded stream slots) and transposed to
-    [Ssort + 1, Bp] for the per-frame row gather, in the rows' dtype.
-    The JAX package's stage="transpose"."""
+def class_stack(rows_t, buf, geom: Pack2Geom, *, container_bits: int):
+    """Every class reconstructed on its static lane slice (const
+    broadcast, verbatim, fixed cumsums, the LPC kernel of lpc_kernel),
+    stacked with one dead zero lane (the `inv` sentinel for padded
+    stream slots), still time-major: [Bp, Ssort + 1] in the rows'
+    dtype. The JAX package's stage="stack"."""
     Bp, Ssort = geom.Bp, geom.Ssort
     order = geom.sect(buf, "order", Ssort)
     seeds_t = geom.sect(buf, "seeds", Ssort * 4).view(4, Ssort)
@@ -238,7 +237,15 @@ def sorted_stack(rows_t, buf, geom: Pack2Geom, *, container_bits: int):
             seg_out.append(lpc_fn(*lpc[name]))
     seg_out.append(torch.zeros((Bp, 1), dtype=rows_t.dtype,
                                device=buf.device))
-    return torch.cat(seg_out, dim=1).t().contiguous()
+    return torch.cat(seg_out, dim=1)
+
+
+def sorted_stack(rows_t, buf, geom: Pack2Geom, *, container_bits: int):
+    """Stage 2 of reconstruct_pack2: class_stack transposed to
+    [Ssort + 1, Bp] for the per-frame row gather. The JAX package's
+    stage="transpose"."""
+    return class_stack(rows_t, buf, geom,
+                       container_bits=container_bits).t().contiguous()
 
 
 def tail_inputs(buf, geom: Pack2Geom):
@@ -246,6 +253,14 @@ def tail_inputs(buf, geom: Pack2Geom):
     return (geom.sect(buf, "inv", geom.Sp),
             geom.sect(buf, "wasted", geom.Sp),
             geom.sect(buf, "chcode", geom.Fp))
+
+
+def stream_rows(stack, inv):
+    """The stack's rows gathered into stream order by `inv` (the
+    buffer's "inv" section): [Sp, Bp]. The clamp keeps a corrupt
+    buffer's indices inside the stack, as XLA's gather clamps them.
+    The JAX package's stage="signal"."""
+    return stack[torch.clamp(inv, 0, stack.shape[0] - 1).long()]
 
 
 def general_tail(stack, buf, geom: Pack2Geom, *, container_bits: int):
@@ -261,10 +276,7 @@ def general_tail(stack, buf, geom: Pack2Geom, *, container_bits: int):
         raise ValueError(f"wide chunk with {C} channels: 33-bit side "
                          "channels exist only in stereo")
     inv, wasted, chcode = tail_inputs(buf, geom)
-    # The clamp keeps a corrupt buffer's indices inside the stack, as
-    # XLA's gather clamps them.
-    inv = torch.clamp(inv, 0, stack.shape[0] - 1).long()
-    frames = (stack[inv] << wasted[:, None]).view(Fp, C, Bp)
+    frames = (stream_rows(stack, inv) << wasted[:, None]).view(Fp, C, Bp)
     if C == 2:
         frames = torch.stack(decorrelate2(frames[:, 0], frames[:, 1],
                                           chcode[:, None]), dim=1)

@@ -5,20 +5,24 @@ the machine with the card:
     python3 -m zflac_tpu_torch.tools.ab_e2e PARENT CHANGE [--pairs 10]
 
 PARENT and CHANGE are checkout roots (say `git archive`s of the two
-commits unpacked under build/). Each measurement is a fresh process
-started in one root, so it imports that checkout's zflac_tpu_torch and
-its chip_smoke.py (whose bench_stream reads or encodes the bench
-streams into that root's .bench_cache/). It times, on bench16 and
-bench24, decode_to_device (synchronized) and decode(engine="torch"),
-each the median of 5 on the host clock after one warm-up, and
-reconstruct_pack2 on the whole-stream chunk (chip_smoke.cuda_ms, CUDA
-events), with its host part (one call's return after a synchronize,
-median of 25) and its device part (10 calls replayed from a CUDA
-graph, median of 25 replays). One process on each side first builds
-that side's libraries and is not counted; then the pairs run, each
-side first in every other pair. It prints each process's times, and
-for each metric both sides' medians and quartiles and the pairs in
-which the change was faster.
+commits unpacked under build/). The bench streams (tools/streams.py)
+are read or encoded once, by the checkout this tool runs from, and
+both sides decode those files. Each measurement is a fresh process
+started in one root, so it imports that checkout's zflac_tpu_torch
+for the timed code alone: the worker reaches only entry points every
+checkout of the port has (decode_to_device, decode, pack2_range,
+chunk_to_torch, reconstruct_pack2), so the parent may be any earlier
+commit of the port. It times, on bench16 and bench24,
+decode_to_device (synchronized) and decode(engine="torch"), each the
+median of 5 on the host clock after one warm-up, and
+reconstruct_pack2 on the whole-stream chunk (batches of calls between
+CUDA events, as utils/cudatime.cuda_ms times them), with its host part
+(one call's return after a synchronize, median of 25) and its device
+part (10 calls replayed from a CUDA graph, median of 25 replays). One
+process on each side first builds that side's libraries and is not
+counted; then the pairs run, each side first in every other pair. It
+prints each process's times, and for each metric both sides' medians
+and quartiles and the pairs in which the change was faster.
 """
 
 from __future__ import annotations
@@ -30,18 +34,47 @@ import statistics
 import subprocess
 import sys
 
-# Run in a checkout root: that checkout's entry points, on the card.
+from . import streams
+
+# Run in a checkout root: that checkout's entry points, on the card,
+# on the stream files named in argv (name=path).
 WORKER = r"""
-import json, statistics, time
+import json, statistics, sys, time
 import torch
-import chip_smoke as c
 import zflac_tpu_torch
 from zflac_tpu_torch import format as fmt
+from zflac_tpu_torch.bitio import BitReader
+from zflac_tpu_torch.index.native_indexer import pack2_range
+from zflac_tpu_torch.oracle import parse_metadata
 from zflac_tpu_torch.runtime import device as rt
 
+
+def cuda_ms(fn, reps=25):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    inner = max(1, min(100, int(1e-3 / (time.perf_counter() - t))))
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return statistics.median(times)
+
+
 out = {}
-for name in ("bench16", "bench24"):
-    data = c.bench_stream(name)
+for arg in sys.argv[1:]:
+    name, path = arg.split("=", 1)
+    with open(path, "rb") as f:
+        data = f.read()
     calls = {
         "decode_to_device": lambda: zflac_tpu_torch.decode_to_device(
             data, device="cuda").synchronize(),
@@ -58,11 +91,14 @@ for name in ("bench16", "bench24"):
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - a) * 1e3)
         out[f"{name} {label} ms"] = statistics.median(walls)
-    ck = c.first_chunk(data)
+    br = BitReader(data)
+    info = parse_metadata(br)
+    ck = pack2_range(data, br.pos // 8, len(data), info,
+                     max_frames=1 << 20)
     buf, geom = rt.chunk_to_torch(ck, torch.device("cuda", 0))
     cb = fmt.container_bits(ck.bits_per_sample)
     rec = lambda: rt.reconstruct_pack2(buf, geom, container_bits=cb)
-    out[f"{name} reconstruct_pack2 ms"] = c.cuda_ms(rec)
+    out[f"{name} reconstruct_pack2 ms"] = cuda_ms(rec)
     # The host's part: one call's return after a synchronize.
     issue = []
     for _ in range(25):
@@ -95,10 +131,12 @@ print(json.dumps(out))
 """
 
 
-def measure(root: str) -> dict:
-    """One worker process in checkout `root`: metric -> ms."""
+def measure(root: str, files: list) -> dict:
+    """One worker process in checkout `root` on `files` (name=path):
+    metric -> ms."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", WORKER], cwd=root, env=env,
+    proc = subprocess.run([sys.executable, "-c", WORKER, *files], cwd=root,
+                          env=env,
                           capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"worker in {root} exited {proc.returncode}:\n"
@@ -119,14 +157,18 @@ def main() -> None:
     args = ap.parse_args()
     sides = {"parent": os.path.abspath(args.parent),
              "change": os.path.abspath(args.change)}
+    files = []
+    for name in ("bench16", "bench24"):
+        streams.bench_stream(name)
+        files.append(f"{name}={streams.bench_path(name)}")
     for side, root in sides.items():
-        measure(root)
+        measure(root, files)
         print(f"{side}: warm-up process done ({root})", flush=True)
     runs = {side: [] for side in sides}
     for i in range(args.pairs):
         order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
         for side in order:
-            runs[side].append(measure(sides[side]))
+            runs[side].append(measure(sides[side], files))
             print(f"pair {i} {side}: " + json.dumps(runs[side][-1]),
                   flush=True)
     for metric in runs["parent"][0]:
