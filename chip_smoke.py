@@ -110,7 +110,18 @@ build/zflac_tpu_torch/, then:
      bench16 through decode_to_device, bit-exact, to show that the
      CUDA context survived;
  16. rice_groups: ops/rice.py's rows_from_groups of bench16 on the card
-     must equal the scan's host rows.
+     must equal the scan's host rows;
+ 17. vectors: the JAX suite's independent bitstreams
+     (zflac_tpu_torch/tools/vectors.py: the 20 hand-built vectors, the
+     three RFC 9639 examples, the six edge-case streams): each stream
+     pack2 admits has every kernel of its pack2 chunk and rows plan
+     (also safe_lpc) held against its plain version, and decodes on the
+     card through decode_to_device, decode(engine="torch") (also
+     safe_lpc) and decode_tolerant to its expected PCM; then the
+     declared-total cut and the front door with a path, a bytearray and
+     a memoryview. rice16, lpc2 (on v_lpc_order32's order-32 class too),
+     packtail, lpc and lpc64 must each launch in the checks and in the
+     decodes.
 
 With --compare-csrc CSRC (another checkout's zflac_tpu_torch/csrc, say
 the parent commit's, unpacked under build/), step 4 also builds that
@@ -142,6 +153,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
@@ -163,7 +175,6 @@ from zflac_tpu_torch.parallel.longstream import (decode_longstream,
 from zflac_tpu_torch.parallel.shard import (decode_to_device_sharded,
                                             local_arrays, shard_plan,
                                             sharded_to_host)
-from zflac_tpu_torch.result import container_dtype
 from zflac_tpu_torch.testing import make_corpus
 from zflac_tpu_torch.ops.lpc import (KERNEL as LPC_ROWS_KERNEL,
                                      lpc_reconstruct, lpc_reconstruct_ref)
@@ -184,6 +195,9 @@ from zflac_tpu_torch.tools.kernel_sass import kernel_name
 from zflac_tpu_torch.tools.streams import (BENCH, BENCH_BLOCK, BY_BPS,
                                            bench_path, bench_pcm,
                                            bench_stream, first_chunk)
+from zflac_tpu_torch.tools.vectors import (EXAMPLE_2, EXAMPLE_2_SAMPLES,
+                                           all_vectors, declared_total_cut,
+                                           expected_output)
 from zflac_tpu_torch.utils.cudatime import REPS, cuda_ms, gpu_line, graph_ms
 
 # The kernels each bench stream's rows-engine path must launch.
@@ -241,14 +255,6 @@ def ptxas_summary() -> list:
             elif name and ("Used" in line or "spill" in line):
                 out.append(f"ptxas {name}: {line.split(' : ')[-1].strip()}")
     return out
-
-
-def expected_pcm(pcm: np.ndarray, bps: int) -> np.ndarray:
-    """Decoder output for encoder input `pcm`: samples shifted to the
-    container's MSBs (zflac.zig:287-306), interleaved."""
-    shift = fmt.normalization_shift(bps)
-    return (pcm.astype(np.int64) << shift).astype(
-        container_dtype(bps)).reshape(-1)
 
 
 # The kernels whose launch takes less device time than the host takes
@@ -1457,6 +1463,152 @@ def rice_groups_phase(data: bytes) -> None:
         f"clock, upload and host patching included)")
 
 
+# ---------------------------------------------------------------------
+# Phase 17: the JAX suite's independent bitstreams on the card.
+# ---------------------------------------------------------------------
+
+# The kernels the vectors phase must launch, in its checks and in its
+# decodes; lpc2 also on v_lpc_order32's order-32 class.
+VECTOR_KERNELS = ("rice16", "lpc2", "packtail", "lpc", "lpc64")
+
+
+def same_pcm(what: str, got: np.ndarray, want: np.ndarray) -> None:
+    if got.dtype != want.dtype or not np.array_equal(got, want):
+        raise AssertionError(f"{what}: {got.dtype} {got.shape} differs from "
+                             f"the expected {want.dtype} {want.shape}")
+
+
+def vector_decodes(v, dev) -> None:
+    """Stream `v` through decode_to_device (to_host with the MD5
+    verified, and the device assembly), decode(engine="torch") (also
+    with safe_lpc) and decode_tolerant on `dev`, each equal to the
+    vector's expected PCM."""
+    dd = zflac_tpu_torch.decode_to_device(v.data, device=dev)
+    if dd is None:
+        raise AssertionError(f"{v.name}: decode_to_device declined")
+    same_pcm(f"{v.name} decode_to_device", dd.to_host().interleaved,
+             v.expected)
+    same_pcm(f"{v.name} interleaved_device",
+             dd.interleaved_device().cpu().numpy().reshape(-1), v.expected)
+    for kw in ({}, {"safe_lpc": True}):
+        r = zflac_tpu_torch.decode(v.data, engine="torch", device=dev,
+                                   **v.kwargs, **kw)
+        same_pcm(f"{v.name} decode(engine=torch, {kw})", r.interleaved,
+                 v.expected)
+    r = zflac_tpu_torch.decode_tolerant(v.data, device=dev)
+    if r.stats["resyncs"] or not r.stats["md5_ok"]:
+        raise AssertionError(f"{v.name} decode_tolerant: {r.stats}")
+    same_pcm(f"{v.name} decode_tolerant", r.interleaved, v.expected)
+
+
+def vectors_phase(dev, diff: Diff, tmp: str, launches: dict) -> None:
+    """Each stream of tools/vectors.py that pack2 admits (all but the
+    empty one): every kernel of its whole-stream pack2 chunk
+    (kernel_checks) and of its rows-engine plan, also with safe_lpc
+    (rows_lpc_checks), against its plain version; then vector_decodes
+    on the card. Then the declared-total cut and the front door with a
+    path, a bytearray and a memoryview. Prints each kernel's launches
+    in the checks and in the decodes, with the streams that reached
+    it, and raises if one of VECTOR_KERNELS did not launch in either."""
+    checks, decodes = Counter(), Counter()
+    reached = {}
+    order32 = None
+    streams = all_vectors()
+    for v in streams:
+        if v.name == "empty_stream":
+            if zflac_tpu_torch.decode_to_device(v.data, device=dev) \
+                    is not None:
+                raise AssertionError("decode_to_device took the empty "
+                                     "stream")
+            continue
+        _kernels.launches.clear()
+        d = kernel_checks(dev, diff, v.name, first_chunk(v.data))
+        for safe in (False, True):
+            rows_lpc_checks(dev, diff, f"{v.name} rows plan"
+                            f"{' safe_lpc' if safe else ''}",
+                            build_plan(v.data), safe_lpc=safe)
+        torch.cuda.synchronize()
+        got = dict(_kernels.launches)
+        if v.name == "v_lpc_order32":
+            order32 = (d["lpc_name"], sorted(d["lpc"]), got.get("lpc2", 0))
+        checks.update(got)
+        _kernels.launches.clear()
+        vector_decodes(v, dev)
+        torch.cuda.synchronize()
+        got_d = dict(_kernels.launches)
+        decodes.update(got_d)
+        for k in {*got, *got_d}:
+            reached.setdefault(k, []).append(v.name)
+    if order32 is None or order32[0] != "lpc2" or "lpc32" not in order32[1] \
+            or not order32[2]:
+        raise AssertionError(f"v_lpc_order32's chunk: LPC kernel, classes "
+                             f"and lpc2 launches {order32}")
+    say("vectors", f"v_lpc_order32's whole-stream chunk: classes "
+        f"{order32[1]} through {order32[0]}, {order32[2]} launch(es), "
+        "== its plain version")
+
+    cut, declared = declared_total_cut()
+    _kernels.launches.clear()
+    dd = zflac_tpu_torch.decode_to_device(cut.data, device=dev)
+    if dd is None:
+        raise AssertionError("declared-total cut: decode_to_device declined")
+    host = dd.to_host(verify_md5=False)
+    r = zflac_tpu_torch.decode(cut.data, engine="torch", device=dev,
+                               **cut.kwargs)
+    for what, got in (("decode_to_device", host), ("decode", r)):
+        if got.num_samples != declared:
+            raise AssertionError(f"declared-total cut, {what}: "
+                                 f"{got.num_samples} samples")
+        same_pcm(f"declared-total cut, {what}", got.interleaved,
+                 cut.expected)
+    try:
+        zflac_tpu_torch.decode(cut.data, engine="torch", device=dev)
+    except InvalidChecksum:
+        pass
+    else:
+        raise AssertionError("declared-total cut: the default decode "
+                             "passed its MD5")
+    torch.cuda.synchronize()
+    decodes.update(_kernels.launches)
+    say("vectors", f"declared-total cut: {declared} samples through "
+        "decode_to_device and decode(engine=\"torch\") with verify_md5="
+        "False; the default decode raises InvalidChecksum")
+
+    path = os.path.join(tmp, "example2.flac")
+    with open(path, "wb") as f:
+        f.write(EXAMPLE_2)
+    _kernels.launches.clear()
+    for kind, arg in (("path", path), ("bytearray", bytearray(EXAMPLE_2)),
+                      ("memoryview", memoryview(bytearray(EXAMPLE_2)))):
+        dd = zflac_tpu_torch.decode_to_device(arg, device=dev)
+        same_pcm(f"front door, {kind}: decode_to_device",
+                 dd.to_host().interleaved, EXAMPLE_2_SAMPLES)
+        same_pcm(f"front door, {kind}: decode", zflac_tpu_torch.decode(
+            arg, device=dev).interleaved, EXAMPLE_2_SAMPLES)
+    torch.cuda.synchronize()
+    decodes.update(_kernels.launches)
+    say("vectors", "front door on the card: a path, a bytearray and a "
+        "memoryview of RFC 9639 Example 2 through decode_to_device and "
+        "decode: the example's samples")
+
+    for k in KERNELS:
+        say("vectors", f"{k}: {checks.get(k, 0)} launches against the plain "
+            f"version, {decodes.get(k, 0)} in the decodes; streams: "
+            f"{', '.join(reached.get(k, [])) or 'none'}")
+    missing = [k for k in VECTOR_KERNELS
+               if not checks.get(k) or not decodes.get(k)]
+    if missing:
+        raise AssertionError(f"vectors: not launched in the checks or the "
+                             f"decodes: {missing}")
+    say("vectors", f"{len(streams) - 1} of {len(streams)} streams (all but "
+        "the empty one, which pack2 declines) bit-exact on the card: every "
+        "kernel == its plain version on each chunk and rows plan, and "
+        "decode_to_device, decode(engine=\"torch\") (also safe_lpc) and "
+        "decode_tolerant == the expected PCM")
+    for k, n in decodes.items():
+        launches[k] = launches.get(k, 0) + n
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--compare-csrc", metavar="CSRC",
@@ -1496,10 +1648,10 @@ def main() -> None:
             f"{os.path.relpath(native_indexer.BUILD_DIR)}), at once")
         for line_ in ptxas_summary():
             say("build", line_)
-        corpus = {name: (data, expected_pcm(pcm, bps))
+        corpus = {name: (data, expected_output(pcm, bps))
                   for name, (data, pcm, _sr, bps) in make_corpus().items()}
         benches = {name: (fut.result(),
-                          expected_pcm(bench_pcm(name), BENCH[name][1]))
+                          expected_output(bench_pcm(name), BENCH[name][1]))
                    for name, fut in pending.items()}
     say("streams", ", ".join(
         f"{name} {len(data)} B ({BENCH[name][0]} x 2 samples, "
@@ -1713,6 +1865,9 @@ def main() -> None:
     t_new += seconds(lambda: fuzz_phase(benches))
     t_new += seconds(lambda: rice_groups_phase(benches["bench16"][0]))
     say("device", f"phases tools, fuzz and rice_groups: {t_new:.0f} s")
+    with tempfile.TemporaryDirectory(dir=_kernels.BUILD_DIR) as tmp:
+        t_vec = seconds(lambda: vectors_phase(dev, diff, tmp, launches))
+    say("device", f"phase vectors: {t_vec:.1f} s")
     say("device", f"{torch.cuda.device_count()} card(s) on the host; total "
         f"{time.perf_counter() - t_streams:.0f} s since the build began")
 

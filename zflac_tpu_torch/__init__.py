@@ -47,7 +47,7 @@ from .errors import (  # noqa: F401
     Unimplemented,
 )
 from .result import DecodedFLAC  # noqa: F401
-from .runtime.device import DeviceDecoded, decode_to_device  # noqa: F401
+from .runtime.device import DeviceDecoded  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -58,6 +58,15 @@ def _read(data) -> bytes:
         with open(data, "rb") as f:
             data = f.read()
     return bytes(data)
+
+
+def decode_to_device(data, **kwargs):
+    """Decode a FLAC stream (bytes or path) to PCM in device memory,
+    the pack2 path (runtime/device.py; device="cuda" unless told
+    otherwise). Returns a DeviceDecoded, or None where the pack2 path
+    declines the stream."""
+    from .runtime.device import decode_to_device as _dd
+    return _dd(_read(data), **kwargs)
 
 
 def decode(data, **kwargs):

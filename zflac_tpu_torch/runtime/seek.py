@@ -171,12 +171,15 @@ def decode_tolerant(data: bytes, max_resyncs: int = 64, *,
 
     segments = []
     errors = 0
+    first_frame = pos
     while pos < len(data) and errors <= max_resyncs:
         # CRC checks on: the frame CRC-16 localizes damage that still
         # parses, so resync skips exactly the bad frame.
         plan, landed, exc = native_indexer.index_range(
             data, pos, len(data), info, partial_ok=True, check_crc=True)
         if plan.num_frames:
+            if not segments:
+                at_first_frame = pos == first_frame
             segments.append(plan)
         if exc is None:
             break
@@ -198,7 +201,24 @@ def decode_tolerant(data: bytes, max_resyncs: int = 64, *,
             return cn
         return cn * int(plan.block_size[0])
 
-    placed = [(first_sample(p), p) for p in segments]
+    # Segments go to their coded sample positions, as in the JAX
+    # package, with one exception: when the stream's first frame
+    # decoded and is numbered at or past the declared total (or no
+    # total is declared), it is sample 0. Variable blocking numbers
+    # frames anywhere in the 36-bit domain, and counting from 0 would
+    # fill the space before the first frame with silence (64 GiB for
+    # tests/test_handvectors.py's v_varblock_36bit, in the JAX
+    # package). A later segment numbered before the origin starts where
+    # the previous one ended.
+    origin = first_sample(segments[0])
+    if not at_first_frame or origin < info.total_samples:
+        origin = 0
+    placed, end = [], 0
+    for p in segments:
+        fs = first_sample(p) - origin
+        fs = fs if fs >= 0 else end
+        placed.append((fs, p))
+        end = fs + p.total_samples
     total = max(fs + p.total_samples for fs, p in placed)
     if info.total_samples:
         total = max(total, info.total_samples)
