@@ -41,16 +41,19 @@ build/zflac_tpu_torch/, then:
      lpc64 also on bench32ms's rows class and bench16's safe_lpc class,
      the redesigned kernels at hist 32, and rice16, packtail and the LPC
      kernel on each chunk decode_to_device reconstructs for bench16,
-     bench24 and bench32ms (the LPC kernels in ns a step), summed per
-     call against the summed bound;
+     bench24 and bench32ms, each chunk in the geometry of its own scan
+     (the LPC kernels in ns a step), summed per call against the summed
+     bound;
   5. drives both main paths, each with the launch counters reset just
      before and read just after (each kernel of the path must have
      launched): decode_to_device on each bench stream, and the rows
      engine, decode(engine="torch"), on each bench stream; checks the
      PCM against the encoder's input and the native C++ decoder, with
-     the stream MD5 verified; then the same for every corpus stream
-     through both engines, bench16 in 256-frame chunks, and a corrupted
-     stream that must raise InvalidChecksum;
+     the stream MD5 verified, and prints each bench stream's chunk
+     geometries, the scan-buffer bytes one call uploads and the device
+     memory one call adds at its peak; then the same for every corpus
+     stream through both engines, bench16 in 256-frame chunks, and a
+     corrupted stream that must raise InvalidChecksum;
   6. runs the rows engine's other entry points on the card:
      decode_pipelined on bench16 (several chunks), stream_decode on
      bench24, decode_range on bench16 (three ranges) and decode_tolerant
@@ -66,12 +69,13 @@ build/zflac_tpu_torch/, then:
   9. sharded: decode_to_device_sharded of each bench stream over every
      visible card (over four slots on cuda:0 when there is one), with
      the launch counters reset before and read after (rice16, the LPC
-     kernel and packtail must equal the live chunks times their
-     classes), sharded_to_host against the encoder's input with the
-     MD5 verified, the completeness count against the block sizes, one
-     case of three or more rounds, and every kernel against its plain
-     version on each chunk of each of these calls (their own chunk
-     sizes and union geometry); reconstruct_sharded on each bench
+     kernel and packtail must equal those of each live chunk's own
+     classes), one PCM shape in each round, sharded_to_host against
+     the encoder's input with the MD5 verified, the completeness count
+     against the block sizes, one case of three or more rounds, and
+     every kernel against its plain version on each chunk of each of
+     these calls (their chunk size, each chunk with its own class
+     sets); reconstruct_sharded on each bench
      stream's rows plan against the single-device reconstruction
      (lpc / lpc64 counted, and held against the plain version on each
      device's slice of the plan); then the sharded decode of bench16 and
@@ -790,10 +794,37 @@ def e2e_times(data: bytes, n_samples: int, line: str, what: str) -> float:
         f"{n_samples / e2e / 1e3:.1f} Msamples/s, median of 5, host "
         f"clock, {phases[0]['chunks']} chunks, {os.cpu_count()} host "
         f"cores; phase medians (host clock) scan {med['scan_ms']:.3f} ms, "
-        f"union re-scan {med['rescan_ms']:.3f} ms, upload + kernel "
+        f"re-scan {med['rescan_ms']:.3f} ms, upload + kernel "
         f"queueing {med['enqueue_ms']:.3f} ms, then waiting for the "
         f"device {med['wait_ms']:.3f} ms; on {line}")
     return e2e
+
+
+def path_memory(name: str, data: bytes, line: str) -> None:
+    """The chunks decode_to_device reconstructs for a bench stream:
+    their distinct geometries, the bytes of scan buffers one call
+    uploads, and the device memory one call adds at its peak
+    (max_memory_allocated after reset_peak_memory_stats, less what was
+    allocated before), beside the PCM it keeps."""
+    br = BitReader(data)
+    cks = rt.stream_chunks(data, parse_metadata(br), br.pos // 8)
+    uploaded = sum(ck.device_buf.nbytes for ck in cks)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dd = zflac_tpu_torch.decode_to_device(data, device="cuda").synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    kept = sum(t.numel() * t.element_size() for t in dd.chunks)
+    if [tuple(t.shape) for t in dd.chunks] != [(ck.Fp, ck.Bp, ck.C)
+                                               for ck in cks]:
+        raise AssertionError(f"{name}: decode_to_device's chunk shapes "
+                             "differ from its scan's geometries")
+    geoms = geoms_line([rt.Pack2Geom.of(ck) for ck in cks])
+    say("slice", f"{name}: decode_to_device reconstructs {len(cks)} chunks "
+        f"in their own geometries ({geoms}); one call uploads "
+        f"{uploaded} B of scan buffers and "
+        f"adds {peak} B ({peak / 2**20:.3f} MiB) of device memory at its "
+        f"peak, of which it keeps {kept} B of PCM; on {line}")
 
 
 def native_pcm(data: bytes) -> np.ndarray:
@@ -1049,36 +1080,56 @@ def sharded_decode_check(diff: Diff, what: str, data: bytes,
         raise AssertionError(
             f"{what}: completeness count {int(meta['psum_samples'])} on "
             f"{meta['psum_samples'].device}, block sizes give {samples}")
-    # The chunks the call reconstructed: the same scan at its chunk
-    # size, which is the frame axis of its tensors.
+    # The chunks the call reconstructed: the same scan, every chunk
+    # padded to the call's chunk size, which is the frame axis of its
+    # tensors; each chunk keeps its own class sets.
     br = BitReader(data)
     info = parse_metadata(br)
     cks = rt.stream_chunks(data, info, br.pos // 8,
-                           chunk_frames=out[0][0].shape[0])
+                           chunk_frames=out[0][0].shape[0], fixed_fp=True)
     live = len(meta["num_frames"])
     if len(cks) != live or meta["rounds"] != -(-live // len(mesh)):
         raise AssertionError(f"{what}: {live} chunks in {meta['rounds']} "
                              f"rounds, the scan gives {len(cks)}")
-    geom = rt.Pack2Geom.of(cks[0])
-    cb = fmt.container_bits(bps)
-    expect = {"rice16": live,
-              rt.lpc_kernel(geom, cb): live * sum(
-                  name.startswith("lpc") for name, _ in geom.classes)}
-    if C == 2 and cb in (8, 16):
-        expect["packtail"] = live
+    for rnd in out:
+        if len({(tuple(t.shape), t.dtype) for t in rnd}) != 1:
+            raise AssertionError(f"{what}: a round's PCM shapes differ")
+    geoms = [rt.Pack2Geom.of(ck) for ck in cks]
+    expect = path_launches(geoms, fmt.container_bits(bps))
     if got != expect:
         raise AssertionError(f"{what}: launches {got}, expected {expect} "
-                             f"({live} live chunks of classes "
-                             f"{geom.classes})")
+                             f"({live} live chunks: {geoms_line(geoms)})")
     for i, ck in enumerate(cks):
         kernel_checks(mesh[i % len(mesh)], diff,
                       f"{what} sharded chunk {i}", ck)
-    return meta, got, geom
+    return meta, got, geoms
+
+
+def path_launches(geoms, cb: int) -> dict:
+    """The launches reconstruct_pack2 makes on chunks of these
+    geometries: rice16 once a chunk, the chunk's LPC kernel once per LPC
+    class, packtail once a stereo chunk in an 8/16-bit container."""
+    expect = Counter()
+    for g in geoms:
+        expect["rice16"] += 1
+        n_lpc = sum(name.startswith("lpc") for name, _ in g.classes)
+        if n_lpc:
+            expect[rt.lpc_kernel(g, cb)] += n_lpc
+        if g.C == 2 and cb in (8, 16):
+            expect["packtail"] += 1
+    return dict(expect)
 
 
 def geom_line(g) -> str:
     return (f"Fp {g.Fp}, Bp {g.Bp}, Ssort {g.Ssort}, W {g.W}, NGp {g.NGp}, "
-            f"classes {g.classes}")
+            f"wide {g.wide}, classes {g.classes}")
+
+
+def geoms_line(geoms) -> str:
+    """The distinct geometries of a list of chunks, each with the
+    number of chunks that have it."""
+    seen = Counter(geom_line(g) for g in geoms)
+    return "; ".join(f"{n} x ({text})" for text, n in seen.items())
 
 
 def sharded_phase(diff: Diff, benches: dict, mesh, single_ms: dict,
@@ -1087,17 +1138,19 @@ def sharded_phase(diff: Diff, benches: dict, mesh, single_ms: dict,
     where = (f"{D} cards" if len(set(mesh)) > 1
              else f"{D} slots on {mesh[0]}")
     for name, (data, want) in benches.items():
-        meta, got, g = sharded_decode_check(diff, name, data, want, mesh)
+        meta, got, geoms = sharded_decode_check(diff, name, data, want,
+                                                mesh)
         say("sharded", f"{name}: decode_to_device_sharded over {where} -> "
             f"sharded_to_host (MD5 verified) == encoder input; "
             f"{len(meta['num_frames'])} chunks of {meta['num_frames']} "
-            f"frames in {meta['rounds']} rounds; completeness count "
-            f"{int(meta['psum_samples'])} == channels x block sizes; "
-            f"kernel launches {got}; every kernel == its plain version on "
-            f"each chunk ({geom_line(g)})")
+            f"frames in {meta['rounds']} rounds, one PCM shape a round; "
+            f"completeness count {int(meta['psum_samples'])} == channels "
+            f"x block sizes; kernel launches {got} == those of the "
+            f"chunks' own classes; every kernel == its plain version on "
+            f"each chunk ({geoms_line(geoms)})")
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
-    meta, got, g = sharded_decode_check(
+    meta, got, geoms = sharded_decode_check(
         diff, f"bench16, chunk_frames={ROUND_FRAMES}", *benches["bench16"],
         mesh, chunk_frames=ROUND_FRAMES)
     if meta["rounds"] < 3:
@@ -1106,7 +1159,7 @@ def sharded_phase(diff: Diff, benches: dict, mesh, single_ms: dict,
     say("sharded", f"bench16 in {len(meta['num_frames'])} chunks of "
         f"{ROUND_FRAMES} frames, {meta['rounds']} rounds over {where}: "
         f"bit-exact, launches {got}; every kernel == its plain version on "
-        f"each chunk ({geom_line(g)})")
+        f"each chunk ({geoms_line(geoms)})")
 
     for name, (data, _) in benches.items():
         plan = build_plan(data)
@@ -1258,10 +1311,8 @@ def distributed_phase(diff: Diff, data: bytes, want: np.ndarray, tmp: str,
     for i, ck in enumerate(cks):
         kernel_checks(dev, diff, f"bench16 worker {i} pack2 chunk", ck)
     g = rt.Pack2Geom.of(cks[0])
-    cb = fmt.container_bits(info.bits_per_sample)
-    expect = {"pack2": {"rice16": 1, "packtail": 1,
-                        rt.lpc_kernel(g, cb): sum(
-                            n.startswith("lpc") for n, _ in g.classes)},
+    expect = {"pack2": path_launches(
+                  [g], fmt.container_bits(info.bits_per_sample)),
               "longstream": {"lpc": 1}}
     shapes = shard_lpc_checks(diff, "bench16 worker", data, 2, [dev])
     say("distributed", f"every kernel == its plain version on the two "
@@ -1666,8 +1717,8 @@ def main() -> None:
         ins[name] = kernel_checks(dev, diff, f"{name} chunk",
                                   first_chunk(data))
         # The chunks decode_to_device itself reconstructs: one per
-        # anchor-split range of the parallel scan, in their union
-        # geometry.
+        # anchor-split range of the parallel scan, each in the geometry
+        # of its own scan.
         br = BitReader(data)
         cks = rt.stream_chunks(data, parse_metadata(br), br.pos // 8)
         path_ins[name] = [kernel_checks(dev, diff,
@@ -1684,9 +1735,9 @@ def main() -> None:
     for name, (data, _) in corpus.items():
         rows_lpc_checks(dev, diff, f"{name} rows plan", build_plan(data))
     # The streaming kernels' synthetic inputs at the bench chunks'
-    # shapes: each stream's whole-stream chunk and first path chunk.
+    # shapes: each stream's whole-stream chunk and path chunks.
     firsts = [(d["geom"], d["cb"]) for name in BENCH
-              for d in (ins[name], path_ins[name][0])]
+              for d in (ins[name], *path_ins[name])]
     streamed = synthetic_checks(
         dev, diff, sorted({(g.W, g.Ssort, g.NGp // g.Ssort)
                            for g, _ in firsts}),
@@ -1699,8 +1750,8 @@ def main() -> None:
             f"Ssort {g.Ssort}, W {g.W}, NGp {g.NGp}, wide {g.wide}, "
             f"classes {g.classes}, LPC kernel {d['lpc_name']}; "
             f"decode_to_device reconstructs {len(path_ins[name])} "
-            f"parallel-scan chunks of classes "
-            f"{path_ins[name][0]['geom'].classes}")
+            f"parallel-scan chunks: "
+            f"{geoms_line([p['geom'] for p in path_ins[name]])}")
     for name, cls in rows_ins.items():
         say("kernels", f"{name} rows-engine plan: LPC classes " + ", ".join(
             f"{c} rows {list(a[0].shape)} {a[0].dtype}"
@@ -1793,6 +1844,7 @@ def main() -> None:
                                  f"path: {missing}")
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
+        path_memory(name, data, line)
 
     # ---- the rows engine's main path, counted per bench stream ----
     for name, (data, want) in benches.items():

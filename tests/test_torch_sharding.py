@@ -3,7 +3,8 @@ shard) against the JAX package's (zflac_tpu.parallel.shard) on the CPU,
 on the same inputs: shard_plan's arrays and meta, reconstruct_sharded
 (the cases of tests/test_sharding.py), decode_to_device_sharded with
 sharded_to_host (the cases of tests/test_sharding_pack2.py, a stream
-whose STREAMINFO total forces the stop cut, and an empty result). The
+whose STREAMINFO total forces the stop cut, chunks whose class sets
+diverge, and an empty result). The
 port runs on a list of CPU devices, the JAX package on its virtual
 8-device CPU mesh. Tolerance zero."""
 
@@ -241,6 +242,46 @@ def test_sharded_to_host_empty_result():
     for pcm in (rounds, rounds[0], []):
         host = pshard.sharded_to_host(pcm, meta)
         assert host.shape == (0,) and host.dtype == np.int32
+
+
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_sharded_pack2_diverging_chunks(n_dev, corpus):
+    """Single-frame chunks of 'constant heavy' diverge in their class
+    sets: each slot is reconstructed in its own geometry, with no
+    re-scan, and every round keeps one PCM shape [Fp, Bp, C]. The JAX
+    function's PCM, the encoder's input and the completeness count."""
+    from conftest import expected_output
+    from zflac_tpu_torch.bitio import BitReader
+    from zflac_tpu_torch.oracle import parse_metadata
+    from zflac_tpu_torch.runtime import device as rt
+
+    data, pcm, _sr, bps = corpus["constant heavy"]
+    br = BitReader(data)
+    cks = rt.stream_chunks(data, parse_metadata(br), br.pos // 8,
+                           chunk_frames=1, fixed_fp=True)
+    assert len({ck.spec_key() for ck in cks}) > 1
+    out, meta, host = _same_sharded(data, n_dev=n_dev, chunk_frames=1)
+    assert meta["rounds"] == -(-len(cks) // n_dev)
+    for rnd in out:
+        assert len({(tuple(t.shape), t.dtype) for t in rnd}) == 1
+    np.testing.assert_array_equal(host, expected_output(pcm, bps))
+    assert int(meta["psum_samples"]) == meta["channels"] * sum(
+        int(b.sum()) for b in meta["block_sizes"])
+
+
+def test_sharded_pack2_chunk_shapes_must_agree(monkeypatch, corpus):
+    """Chunks of one call whose PCM shapes differ (here each scanned
+    with its natural frame capacity, 4 and 2 frames) raise ValueError
+    before anything is reconstructed."""
+    real = pshard.stream_chunks
+
+    def natural_fp(*args, **kw):
+        return real(*args, **dict(kw, fixed_fp=False))
+
+    monkeypatch.setattr(pshard, "stream_chunks", natural_fp)
+    with pytest.raises(ValueError, match="PCM shapes diverge"):
+        pshard.decode_to_device_sharded(corpus["lpc order 8"][0],
+                                        _cpu_mesh(2), chunk_frames=4)
 
 
 def test_chunks_of_one_call_share_one_geometry(corpus):

@@ -14,7 +14,8 @@ and launches are queued before anything is waited for. Two pieces of
 the JAX module therefore have no twin: repack_common stacks the chunks
 of a round into one [D, L] array for shard_map, and make_pack2_body
 builds the one traced body. What is kept of them is the check that all
-chunks of a call share one geometry.
+chunks of a call share one PCM shape [Fp, Bp, C], the per-slot shape of
+the JAX function's global array; each chunk keeps its own class sets.
 """
 
 from __future__ import annotations
@@ -179,8 +180,9 @@ def reconstruct_sharded(plan: StreamPlan, mesh):
 
 def require_one_geometry(cks) -> tuple:
     """The spec_key every chunk of `cks` shares. Raises ValueError when
-    they diverge: the chunks of one call are scanned with one forced
-    geometry, so every device runs the same shapes."""
+    they diverge: the multi-process decode scans the chunks of one call
+    with one forced geometry, so every process derives the same
+    buffer layout."""
     spec = cks[0].spec_key()
     for ck in cks[1:]:
         if ck.spec_key() != spec:
@@ -199,7 +201,8 @@ def decode_to_device_sharded(data: bytes, mesh, check_crc: bool = False,
                              chunk_frames: int = 0):
     """Frame-parallel device-resident decode over a list of devices
     through the pack2 path: the stream is scanned into packed chunks of
-    one geometry, chunk i goes to mesh[i % D] in round i // D (one
+    one frame capacity (each with its own class sets), chunk i goes to
+    mesh[i % D] in round i // D (one
     pinned upload and one reconstruct_pack2 there), and nothing is
     waited for. No data crosses devices: frames are independent; the
     per-chunk sample counts are summed on mesh[0] as the completeness
@@ -234,14 +237,16 @@ def decode_to_device_sharded(data: bytes, mesh, check_crc: bool = False,
                 chunk_frames * info.channel_count * Bp >= (1 << 25):
             chunk_frames //= 2
 
-    # The parallel scan, the union re-scan and its landed check, the
-    # per-chunk loop with its stream-consistency rules and the stop cut
-    # are decode_to_device's.
+    # The parallel scan, the per-chunk loop with its stream-consistency
+    # rules and the stop cut are decode_to_device's. Every chunk is
+    # padded to chunk_frames, so each round's slots share one shape.
     cks = stream_chunks(data, info, pos, check_crc=check_crc,
-                        chunk_frames=chunk_frames)
+                        chunk_frames=chunk_frames, fixed_fp=True)
     if not cks:
         return None
-    require_one_geometry(cks)
+    shapes = {(ck.Fp, ck.Bp, ck.C) for ck in cks}
+    if len(shapes) > 1:
+        raise ValueError(f"pack2 chunk PCM shapes diverge: {sorted(shapes)}")
     n_rounds = -(-len(cks) // D)
     _log_shard.debug(
         "pack2 sharded: %d chunks over %d devices in %d rounds, "

@@ -431,8 +431,10 @@ def estimate_total_frames(data: bytes, pos: int, info,
 
 def class_caps(cks):
     """Union class capacities (in PACK2_CLASSES order), patch capacity
-    and wide flag over a chunk list: the force_* inputs that make a
-    re-scan of each chunk produce one identical geometry."""
+    and wide flag over a chunk list: the force_* inputs that would make
+    a re-scan of each chunk produce one identical geometry (the JAX
+    package's union re-scan; the port reconstructs each chunk in its
+    own geometry)."""
     caps = {}
     for ck in cks:
         for name, cn, _ in ck.classes:
@@ -444,15 +446,23 @@ def class_caps(cks):
 
 
 def scan_pack2_chunks(data: bytes, pos: int, info, chunk_frames: int,
-                      Bp: int, check_crc: bool, workers: int = 0):
-    """Scan the stream into pack2 chunks, in parallel across byte
-    ranges split at sync-scan anchors (CRC-validated frame starts); the
-    ctypes scan releases the GIL, so the C++ scans overlap. The chunk
-    chain is verified (each range must start where the previous one
-    landed); an anchor miss, a decline inside a range or a chain break
-    falls back to one serial scan.
+                      Bp: int, check_crc: bool, workers: int = 0, *,
+                      fixed_fp: bool = False):
+    """Scan the stream into pack2 chunks of at most `chunk_frames`
+    frames, in parallel across byte ranges split at sync-scan anchors
+    (CRC-validated frame starts); the ctypes scan releases the GIL, so
+    the C++ scans overlap. The chunk chain is verified (each range must
+    start where the previous one landed); an anchor miss, a decline
+    inside a range or a chain break falls back to one serial scan.
+
+    Each chunk keeps the geometry its own scan gives it: Fp is the next
+    power of two of its frame count, or `chunk_frames` for every chunk
+    with `fixed_fp` (the sharded path's one slot shape). Bp is forced
+    for all; W is chained within a range.
 
     Returns a list of (start_byte, Pack2Chunk), or None (decline)."""
+    force_fp = chunk_frames if fixed_fp else 0
+
     def seq(a, stop):
         out = []
         p = a
@@ -460,7 +470,7 @@ def scan_pack2_chunks(data: bytes, pos: int, info, chunk_frames: int,
         while p < stop:
             ck = native_indexer.pack2_range(
                 data, p, stop, info, check_crc=check_crc,
-                max_frames=chunk_frames, force_fp=chunk_frames,
+                max_frames=chunk_frames, force_fp=force_fp,
                 force_bp=Bp, force_w=force_w)
             if ck is None:
                 return None
@@ -570,12 +580,15 @@ def reconstruct_chunks(cks, devices, each=None) -> list:
 
 def stream_chunks(data: bytes, info, pos: int, *, check_crc: bool = False,
                   chunk_frames: int = 0, scan_workers: int = 0,
-                  stats: dict | None = None):
+                  fixed_fp: bool = False, stats: dict | None = None):
     """The pack2 chunks decode_to_device reconstructs for the stream
-    whose frames start at byte `pos`: a parallel scan, then, where the
-    chunks' geometries differ, a re-scan of each with their union.
-    Returns a list of Pack2Chunk, or None (decline). Fills `stats` with
-    the host-clock times of the scan and the re-scan."""
+    whose frames start at byte `pos`: a parallel scan whose chunks each
+    keep their own geometry (scan_pack2_chunks; `fixed_fp` pads every
+    chunk to the chunk size). Returns a list of Pack2Chunk, or None
+    (decline). Fills `stats` with the host-clock time of the scan;
+    `rescan_ms` is 0, since no chunk is scanned twice (the JAX package
+    re-scans diverging chunks with their union geometry, and tools
+    read the key from both)."""
     Bp = _bucket_block(max(info.max_block_size, 16))
     t_scan = time.perf_counter()
     if chunk_frames <= 0:
@@ -591,32 +604,14 @@ def stream_chunks(data: bytes, info, pos: int, *, check_crc: bool = False,
             chunk_frames *= 2
 
     chunks = scan_pack2_chunks(data, pos, info, chunk_frames, Bp,
-                               check_crc, workers=scan_workers)
+                               check_crc, workers=scan_workers,
+                               fixed_fp=fixed_fp)
     if not chunks:
         return None
-    cks = [ck for _, ck in chunks]
-    t_rescan = time.perf_counter()
-    # One geometry across all chunks: if any chunk's natural geometry
-    # diverges, re-scan each chunk's byte range with the forced union
-    # geometry. A re-scan must land where the natural scan did.
-    spec0 = cks[0].spec_key()
-    if any(ck.spec_key() != spec0 for ck in cks[1:]):
-        cnp, pnp, wide_u = class_caps(cks)
-        force_w = max(ck.W for ck in cks)
-        cks = [native_indexer.pack2_range(
-                   data, a, ck.landed, info, check_crc=check_crc,
-                   max_frames=chunk_frames, force_fp=chunk_frames,
-                   force_bp=Bp, force_w=force_w, force_class_np=cnp,
-                   force_patch_np=pnp, force_wide=wide_u)
-               for a, ck in chunks]
-        if any(ck is None or ck.landed != nat.landed
-               for ck, (_, nat) in zip(cks, chunks)):
-            return None
     if stats is not None:
-        t_end = time.perf_counter()
-        stats.update(scan_ms=(t_rescan - t_scan) * 1e3,
-                     rescan_ms=(t_end - t_rescan) * 1e3)
-    return cks
+        stats.update(scan_ms=(time.perf_counter() - t_scan) * 1e3,
+                     rescan_ms=0.0)
+    return [ck for _, ck in chunks]
 
 
 def decode_to_device(data: bytes, *, device="cuda", check_crc: bool = False,
@@ -628,8 +623,10 @@ def decode_to_device(data: bytes, *, device="cuda", check_crc: bool = False,
     decode_to_device declines (exotic or mismatching streams, no
     native scan library). A CUDA device with no card raises; nothing
     moves to the CPU unless the caller asks for it. The host scan runs
-    in parallel (scan_workers=0 picks the core count, up to 8); uploads
-    and kernels are queued on the current stream without waiting."""
+    in parallel (scan_workers=0 picks the core count, up to 8), and
+    each chunk is reconstructed in the geometry its own scan gave it;
+    uploads and kernels are queued on the current stream without
+    waiting."""
     device = resolve_device(device)
     if not native_indexer.native_available():
         return None
@@ -653,9 +650,9 @@ def decode_to_device(data: bytes, *, device="cuda", check_crc: bool = False,
         num_frames=[ck.F for ck in cks],
         block_sizes=[ck.f_block_size for ck in cks],
         stats={"engine": "pack2"})
-    # Host-clock phase times: the scan (with the frame estimate), the
-    # union re-scan, and queueing the uploads and kernels (the device
-    # work itself is not waited for).
+    # Host-clock phase times: the scan (with the frame estimate) and
+    # queueing the uploads and kernels (the device work itself is not
+    # waited for).
     t_end = time.perf_counter()
     dd.total_samples = sum(int(bs.sum()) for bs in dd.block_sizes)
     cut = cut_at_total(dd.num_frames, dd.block_sizes, info.total_samples)

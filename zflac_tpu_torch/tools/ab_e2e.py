@@ -9,12 +9,18 @@ commits unpacked under build/). The bench streams (tools/streams.py)
 are read or encoded once, by the checkout this tool runs from, and
 both sides decode those files. Each measurement is a fresh process
 started in one root, so it imports that checkout's zflac_tpu_torch
-for the timed code alone: the worker reaches only entry points every
-checkout of the port has (decode_to_device, decode, pack2_range,
-chunk_to_torch, reconstruct_pack2), so the parent may be any earlier
-commit of the port. It times, on bench16 and bench24,
-decode_to_device (synchronized) and decode(engine="torch"), each the
-median of 5 on the host clock after one warm-up, and
+for the timed code alone: the worker reaches only entry points the
+port has had since it gained its sharded decode (decode_to_device,
+decode, decode_to_device_sharded, stream_chunks, pack2_range,
+chunk_to_torch, reconstruct_pack2), so the parent may be any commit
+from then on. It times, on bench16 and bench24,
+decode_to_device (synchronized, with the medians of its scan_ms and
+rescan_ms stats), decode_to_device_sharded over four slots of cuda:0
+(synchronized) and decode(engine="torch"), each the median of 5 on the
+host clock after one warm-up; it counts the bytes of the scan buffers
+decode_to_device uploads (stream_chunks' chunks) and the peak device
+memory one decode_to_device call adds (max_memory_allocated after
+reset_peak_memory_stats, less what was allocated before); and it times
 reconstruct_pack2 on the whole-stream chunk (batches of calls between
 CUDA events, as utils/cudatime.cuda_ms times them), with its host part
 (one call's return after a synchronize, median of 25) and its device
@@ -22,7 +28,7 @@ part (10 calls replayed from a CUDA graph, median of 25 replays). One
 process on each side first builds that side's libraries and is not
 counted; then the pairs run, each side first in every other pair. It
 prints each process's times, and for each metric both sides' medians
-and quartiles and the pairs in which the change was faster.
+and quartiles and the pairs in which the change's value was lower.
 """
 
 from __future__ import annotations
@@ -46,8 +52,10 @@ from zflac_tpu_torch import format as fmt
 from zflac_tpu_torch.bitio import BitReader
 from zflac_tpu_torch.index.native_indexer import pack2_range
 from zflac_tpu_torch.oracle import parse_metadata
+from zflac_tpu_torch.parallel.shard import decode_to_device_sharded
 from zflac_tpu_torch.runtime import device as rt
 
+mesh = [torch.device("cuda", 0)] * 4
 
 def cuda_ms(fn, reps=25):
     for _ in range(3):
@@ -75,9 +83,13 @@ for arg in sys.argv[1:]:
     name, path = arg.split("=", 1)
     with open(path, "rb") as f:
         data = f.read()
+    stats = []
     calls = {
-        "decode_to_device": lambda: zflac_tpu_torch.decode_to_device(
-            data, device="cuda").synchronize(),
+        "decode_to_device": lambda: stats.append(
+            zflac_tpu_torch.decode_to_device(
+                data, device="cuda").synchronize().stats),
+        "decode_to_device_sharded 4 slots": lambda: (
+            decode_to_device_sharded(data, mesh), torch.cuda.synchronize()),
         "decode(engine=torch)": lambda: zflac_tpu_torch.decode(
             data, engine="torch", device="cuda"),
     }
@@ -91,8 +103,21 @@ for arg in sys.argv[1:]:
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - a) * 1e3)
         out[f"{name} {label} ms"] = statistics.median(walls)
+    for key in ("scan_ms", "rescan_ms"):
+        out[f"{name} decode_to_device {key}"] = statistics.median(
+            st[key] for st in stats[1:])
     br = BitReader(data)
     info = parse_metadata(br)
+    out[f"{name} decode_to_device upload bytes"] = sum(
+        ck.device_buf.nbytes for ck in rt.stream_chunks(data, info,
+                                                        br.pos // 8))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dd = zflac_tpu_torch.decode_to_device(data, device="cuda").synchronize()
+    out[f"{name} decode_to_device peak MiB"] = (
+        torch.cuda.max_memory_allocated() - base) / 2**20
+    del dd
     ck = pack2_range(data, br.pos // 8, len(data), info,
                      max_frames=1 << 20)
     buf, geom = rt.chunk_to_torch(ck, torch.device("cuda", 0))
@@ -133,7 +158,7 @@ print(json.dumps(out))
 
 def measure(root: str, files: list) -> dict:
     """One worker process in checkout `root` on `files` (name=path):
-    metric -> ms."""
+    metric -> value (ms, bytes or MiB, as its name says)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", WORKER, *files], cwd=root,
                           env=env,
@@ -179,7 +204,7 @@ def main() -> None:
               f"(quartiles {quartiles(p)[0]:.4f}-{quartiles(p)[1]:.4f}), "
               f"change median {statistics.median(c):.4f} (quartiles "
               f"{quartiles(c)[0]:.4f}-{quartiles(c)[1]:.4f}); the change "
-              f"faster in {wins} of {len(p)} pairs", flush=True)
+              f"lower in {wins} of {len(p)} pairs", flush=True)
 
 
 if __name__ == "__main__":
