@@ -18,13 +18,16 @@ build/zflac_tpu_torch/, then:
      cached in .bench_cache/ (bench16: bench.py's 2**22 samples per
      channel at 16 bits; bench24: the JAX package's stream24 row,
      2**21 samples at 24 bits; bench32ms: 2**20 samples at 32 bits,
-     mid-side, whose 33-bit side channels make wide chunks), and every
-     corpus stream;
+     mid-side, whose 33-bit side channels make wide chunks), bench16_513
+     (bench16 cut to 513 frames, one past a power of two, for the rows
+     engine) and every corpus stream;
   4. holds each kernel bit for bit against its plain PyTorch version on
      the card: rice16, rice16_flat, lpc2, packtail, lpc2w and lpc2w33 on
      every stream's real pack2 chunk sections, lpc and lpc64 on the LPC
      classes of every stream's rows-engine plan (gathered as the rows
-     engine gathers them, a safe_lpc plan of bench16 too), and all of
+     engine gathers them, the safe_lpc plans of bench16 and bench16_513
+     too, and classes of 1, 7, 33 and 1026 members padded to a multiple
+     of 32 lanes as pad_plan pads them), and all of
      them on seeded synthetic inputs (rice16, rice16_flat and packtail
      from the CPU tests' generators at the bench chunks' shapes, with
      Rice parameters up to 61, unary runs across words, Fp 1, Bp not a
@@ -39,7 +42,8 @@ build/zflac_tpu_torch/, then:
      the host's issue, from 25 replays of a CUDA graph of 20 calls)
      beside its bound,
      lpc64 also on bench32ms's rows class and bench16's safe_lpc class,
-     the redesigned kernels at hist 32, and rice16, packtail and the LPC
+     lpc and lpc64 on bench16_513's classes (n 1056), the redesigned
+     kernels at hist 32, and rice16, packtail and the LPC
      kernel on each chunk decode_to_device reconstructs for bench16,
      bench24 and bench32ms, each chunk in the geometry of its own scan
      (the LPC kernels in ns a step), summed per call against the summed
@@ -47,7 +51,8 @@ build/zflac_tpu_torch/, then:
   5. drives both main paths, each with the launch counters reset just
      before and read just after (each kernel of the path must have
      launched): decode_to_device on each bench stream, and the rows
-     engine, decode(engine="torch"), on each bench stream; checks the
+     engine, decode(engine="torch"), on each bench stream and
+     bench16_513; checks the
      PCM against the encoder's input and the native C++ decoder, with
      the stream MD5 verified, and prints each bench stream's chunk
      geometries, the scan-buffer bytes one call uploads and the device
@@ -60,7 +65,9 @@ build/zflac_tpu_torch/, then:
      on a corrupted corpus stream (against the same call on the CPU);
   7. times the device reconstruction of each bench chunk, the whole
      decode_to_device call on bench16 and bench24, and decode(engine=
-     "torch") on both, end to end and in its phases;
+     "torch") on both and on bench16_513, end to end and in its phases,
+     with the bytes the rows engine stages for each of the three (its
+     rows, all it uploads) and its class lists' member counts and n;
   8. faults: empty shapes (B == 0, n == 0, NGp == 0, Fp == 0) through
      every kernel wrapper on the card give the plain versions' empty
      results without a launch; a decode leaves the thread's current
@@ -87,8 +94,10 @@ build/zflac_tpu_torch/, then:
  11. distributed: two worker processes that share cuda:0, over gloo
      (python3 -m zflac_tpu_torch.parallel.distributed ... pack2 cuda:0,
      then ... longstream cuda:0), on bench16: both outputs must equal
-     the encoder's input, and the launch counts each worker prints
-     must be those of its chunk or shard; the kernels are held against
+     the encoder's input, the launch counts each worker prints must be
+     those of its own chunk (each scanned once, in its own geometry) or
+     shard, and each pack2 worker's rescan_ms must read 0 (its scan_ms
+     and its chunk's geometry are printed); the kernels are held against
      their plain versions on the two workers' chunks and plans;
  12. cli: python3 -m zflac_tpu_torch.cli decode, verify and bench on
      bench16 as three processes at once (the WAV's payload must equal
@@ -173,7 +182,7 @@ from zflac_tpu_torch.index.native_indexer import (build_plan_native,
                                                   decode_cpu_native)
 from zflac_tpu_torch.oracle import parse_metadata
 from zflac_tpu_torch.parallel import make_mesh, reconstruct_sharded
-from zflac_tpu_torch.parallel.distributed import union_chunks
+from zflac_tpu_torch.parallel.distributed import range_chunks
 from zflac_tpu_torch.parallel.longstream import (decode_longstream,
                                                  shard_index)
 from zflac_tpu_torch.parallel.shard import (decode_to_device_sharded,
@@ -197,16 +206,20 @@ from zflac_tpu_torch.tools import fuzz_native, kernel_ab, profile_pack2
 from zflac_tpu_torch.tools.kernel_inputs import packtail_inputs, rice_groups
 from zflac_tpu_torch.tools.kernel_sass import kernel_name
 from zflac_tpu_torch.tools.streams import (BENCH, BENCH_BLOCK, BY_BPS,
-                                           bench_path, bench_pcm,
-                                           bench_stream, first_chunk)
+                                           ODD_SAMPLES, bench_path,
+                                           bench_pcm, bench_stream,
+                                           first_chunk)
 from zflac_tpu_torch.tools.vectors import (EXAMPLE_2, EXAMPLE_2_SAMPLES,
                                            all_vectors, declared_total_cut,
                                            expected_output)
 from zflac_tpu_torch.utils.cudatime import REPS, cuda_ms, gpu_line, graph_ms
 
+# bench16 cut to 513 frames (tools/streams.py ODD_SAMPLES): a frame
+# count one past a power of two, for the rows engine.
+ODD = "bench16_513"
 # The kernels each bench stream's rows-engine path must launch.
 ROWS_PATH = {"bench16": ("lpc",), "bench24": ("lpc64",),
-             "bench32ms": ("lpc64",)}
+             "bench32ms": ("lpc64",), ODD: ("lpc",)}
 # Batches for the plain lpc and lpc64 (4096 Python-loop steps a call).
 PLAIN_LPC_REPS = 5
 # Frames per chunk for decode_pipelined and stream_decode (8 and 4
@@ -478,6 +491,47 @@ def ring_checks(rng, t, diff: Diff) -> None:
                                    plain(*args))
 
 
+# Member counts of an LPC class for class_pad_checks: one lane, a part
+# of a warp, one past a warp, and bench16_513's lpc class (1026 members).
+PAD_COUNTS = (1, 7, 33, 1026)
+
+
+def class_pad_checks(rng, t, diff: Diff) -> list:
+    """lpc and lpc64 against their plain versions on classes of
+    PAD_COUNTS members, gathered as reconstruct_core gathers them: the
+    members spread over subframe-major plan rows [S, 4096], the list
+    padded with the sentinel S to a multiple of rd.CLASS_GROUP as
+    pad_plan pads it. Every gathered lane slice must have the row
+    stride and base of the ring's 16-byte copies. Returns the kernel
+    shapes checked."""
+    done = []
+    for name in ("lpc", "lpc64"):
+        for count in PAD_COUNTS:
+            rows, cf, shift, order = ring_inputs(rng, name, count,
+                                                 BENCH_BLOCK, 32)
+            S = count + 5
+            members = np.sort(rng.choice(S, count, replace=False))
+
+            def spread(a):  # subframe-major, the members among S rows
+                out = np.zeros((S, *a.shape[1:]), a.dtype)
+                out[members] = a
+                return out
+
+            idx = np.full(-(-count // rd.CLASS_GROUP) * rd.CLASS_GROUP, S,
+                          np.int32)
+            idx[:count] = members
+            args = lpc_class_inputs(*(t(spread(a)) for a in
+                                      (rows.T, cf.T, shift, order)), t(idx))
+            n = args[0].shape[1]
+            if args[0].stride(0) % 4 or args[0].data_ptr() % 16:
+                raise AssertionError(f"{name}: a class of {count} members "
+                                     f"padded to {n} lanes is unaligned")
+            diff.check(name, f"a class of {count} members padded to {n}",
+                       lpc_reconstruct(*args), lpc_reconstruct_ref(*args))
+            done.append(f"{name} {count} -> [{BENCH_BLOCK}, {n}]")
+    return done
+
+
 def misaligned(a: np.ndarray, dev):
     """A contiguous int32 copy of `a` on `dev` whose data starts 4 bytes
     past a 16-byte boundary: a view at an odd offset into a larger
@@ -731,9 +785,10 @@ def hist32_inputs(dev) -> dict:
 
 
 def extra_times(diff: Diff, hist32: dict, rows_ins: dict, safe_ins: dict,
-                line: str) -> None:
+                odd_ins: dict, line: str) -> None:
     """lpc64 on bench32ms's rows class and bench16's safe_lpc class
-    (beside bench24's, timed with the others), and the redesigned
+    (beside bench24's, timed with the others), lpc and lpc64 on
+    bench16_513's classes of 1026 members (n 1056), and the redesigned
     kernels on order-32 inputs (hist 32), checked against their plain
     versions first: kernel ms and ns a step against the bound."""
     for label, (name, args) in hist32.items():
@@ -742,7 +797,11 @@ def extra_times(diff: Diff, hist32: dict, rows_ins: dict, safe_ins: dict,
     cases = {"lpc64 bench32ms rows lpc": ("lpc64",
                                           rows_ins["bench32ms"]["lpc"]),
              "lpc64 bench16 safe_lpc rows lpc_wide": (
-                 "lpc64", safe_ins["lpc_wide"]), **hist32}
+                 "lpc64", safe_ins["lpc_wide"]),
+             f"lpc {ODD} rows lpc": ("lpc", odd_ins["lpc"]),
+             f"lpc64 {ODD} safe_lpc rows lpc_wide": ("lpc64",
+                                                     odd_ins["lpc64"]),
+             **hist32}
     for label, (name, args) in cases.items():
         kern, _ = ring_fns(name)
         ms = cuda_ms(lambda: kern(*args))
@@ -937,6 +996,30 @@ def rows_times(data: bytes, n_samples: int, line: str, what: str) -> None:
         f"phased run) " + ", ".join(
             f"{n} {m:.3f} ms" for n, m in zip(names, med))
         + f" (sum {sum(med):.3f} ms); on {line}")
+
+
+def staged_line(name: str, data: bytes, line: str) -> None:
+    """What the rows engine stages for one decode of `data`: the bytes
+    of its plan rows, of everything uploaded (the packed buffer of an
+    int32 stream, else pad_plan's arrays and class lists), and each
+    class list's length."""
+    plan = build_plan(data)
+    staged = rd.stage_plan(plan)
+    arrays, class_idx = rd.pad_plan(plan)
+    if staged.buf is not None:
+        total, how = staged.buf.nbytes, "one packed buffer"
+    else:
+        total, how = sum(a.nbytes for a in (*arrays.values(),
+                                            *class_idx.values())), \
+            "one copy an array"
+    S = plan.num_subframes
+    lists = ", ".join(f"{k} {np.count_nonzero(v < S)} members -> n "
+                      f"{len(v)}" for k, v in class_idx.items())
+    say("rows", f"{name}: decode(engine=\"torch\") stages rows "
+        f"{list(arrays['rows'].shape)} {arrays['rows'].dtype} = "
+        f"{arrays['rows'].nbytes} B and uploads {total} B in all ({how}); "
+        f"{plan.num_frames} frames, {S} subframes; class lists {lists}; "
+        f"on {line}")
 
 
 # ---------------------------------------------------------------------
@@ -1296,28 +1379,32 @@ def distributed_phase(diff: Diff, data: bytes, want: np.ndarray, tmp: str,
                       line: str) -> None:
     """Two worker processes sharing one card decode bench16 together,
     through the pack2 path and through the long-stream path; each
-    prints its launch counts, which must be those of its one chunk (or
-    its one shard). Before that, each kernel is held against its plain
-    version here on the chunks and shard plans the workers make."""
+    prints its stats and launch counts, which must be those of its one
+    chunk, in that chunk's own geometry (or of its one shard), with a
+    re-scan time of 0. Before that, each kernel is held against its
+    plain version here on the chunks and shard plans the workers
+    make."""
     dev = torch.device(CARD)
     # Outside any process group, two local ranges are the two workers'
-    # ranges, and the union over them is the union the workers gather.
+    # ranges, each scanned as its worker scans it.
     br = BitReader(data)
     info = parse_metadata(br)
-    _, cks = union_chunks(data, info, br.pos // 8, 2)
+    _, cks = range_chunks(data, info, br.pos // 8, 2)
     if cks is None or len(cks) != 2:
         raise AssertionError("distributed: the two ranges' pack2 scan "
                              "declined")
     for i, ck in enumerate(cks):
         kernel_checks(dev, diff, f"bench16 worker {i} pack2 chunk", ck)
-    g = rt.Pack2Geom.of(cks[0])
-    expect = {"pack2": path_launches(
-                  [g], fmt.container_bits(info.bits_per_sample)),
-              "longstream": {"lpc": 1}}
+    geoms = [rt.Pack2Geom.of(ck) for ck in cks]
+    cb = fmt.container_bits(info.bits_per_sample)
+    expect = {"pack2": [path_launches([g], cb) for g in geoms],
+              "longstream": [{"lpc": 1}] * 2}
     shapes = shard_lpc_checks(diff, "bench16 worker", data, 2, [dev])
-    say("distributed", f"every kernel == its plain version on the two "
-        f"workers' pack2 chunks ({geom_line(g)}) and lpc on their "
-        f"long-stream plans, rows {shapes}")
+    say("distributed", "every kernel == its plain version on each "
+        "worker's pack2 chunk in its own geometry (" + "; ".join(
+            f"worker {r}: {ck.F} frames, {geom_line(g)}"
+            for r, (ck, g) in enumerate(zip(cks, geoms)))
+        + f") and lpc on their long-stream plans, rows {shapes}")
 
     for engine in ("pack2", "longstream"):
         outs = [os.path.join(tmp, f"{engine}{rank}.npy") for rank in (0, 1)]
@@ -1332,21 +1419,34 @@ def distributed_phase(diff: Diff, data: bytes, want: np.ndarray, tmp: str,
             if not np.array_equal(np.load(out), want):
                 raise AssertionError(f"distributed {engine}: {out} differs "
                                      "from the encoder input")
-        stats = [log.strip().splitlines()[-1] for log in logs]
-        if not all(f"'engine': '{engine}-distributed'" in s_ and
-                   "'processes': 2" in s_ for s_ in stats):
-            raise AssertionError(f"distributed {engine}: {stats}")
+        # Each worker's last line: "process r/2: {stats}; kernel
+        # launches {counts}".
+        lasts = [log.strip().splitlines()[-1] for log in logs]
+        stats = [ast.literal_eval(s_.split(": ", 1)[1].split(
+                     "; kernel launches ")[0]) for s_ in lasts]
         counts = [ast.literal_eval(s_.split("kernel launches ")[1])
-                  for s_ in stats]
-        if counts != [expect[engine]] * 2:
+                  for s_ in lasts]
+        if not all(st["engine"] == f"{engine}-distributed" and
+                   st["processes"] == 2 for st in stats):
+            raise AssertionError(f"distributed {engine}: {lasts}")
+        if engine == "pack2" and any(st["rescan_ms"] != 0 for st in stats):
+            raise AssertionError(f"distributed pack2 re-scanned: {stats}")
+        if counts != expect[engine]:
             raise AssertionError(f"distributed {engine}: the workers "
                                  f"launched {counts}, expected "
-                                 f"{expect[engine]} each")
+                                 f"{expect[engine]}")
+        each = "; ".join(
+            f"process {r}: launches {c}" + (
+                f", scan_ms {st['scan_ms']:.3f} (host clock), rescan_ms "
+                f"{st['rescan_ms']}, its chunk Fp {geoms[r].Fp}, Ssort "
+                f"{geoms[r].Ssort}, classes {geoms[r].classes}"
+                if engine == "pack2" else "")
+            for r, (st, c) in enumerate(zip(stats, counts)))
         say("distributed", f"bench16, {engine}: 2 processes on {CARD} over "
-            f"gloo, both outputs == encoder input; {stats[0]} in each "
-            f"process; {wall:.1f} s "
-            f"from start to exit of both processes (host clock, Python "
-            f"and CUDA start-up included); on {line}")
+            f"gloo, both outputs == encoder input; {each}; stats "
+            f"{stats[0]}; {wall:.1f} s from start to exit of both "
+            f"processes (host clock, Python and CUDA start-up included); "
+            f"on {line}")
 
 
 def cli_and_profile_phase(want: np.ndarray, tmp: str, line: str) -> None:
@@ -1679,9 +1779,10 @@ def main() -> None:
     # work, cached afterwards) while the kernels build.
     t_streams = time.perf_counter()
     with ProcessPoolExecutor(
-            max_workers=len(BENCH),
+            max_workers=len(BENCH) + 1,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         pending = {name: pool.submit(bench_stream, name) for name in BENCH}
+        pending_odd = pool.submit(bench_stream, "bench16", ODD_SAMPLES)
         # The CUDA kernels (one nvcc per source) and the host scan
         # library build at the same time, from the checkout's sources.
         with ThreadPoolExecutor(2) as ex:
@@ -1704,11 +1805,14 @@ def main() -> None:
         benches = {name: (fut.result(),
                           expected_output(bench_pcm(name), BENCH[name][1]))
                    for name, fut in pending.items()}
+        odd = (pending_odd.result(),
+               expected_output(bench_pcm("bench16", ODD_SAMPLES), 16))
     say("streams", ", ".join(
         f"{name} {len(data)} B ({BENCH[name][0]} x 2 samples, "
         f"{BENCH[name][1]}-bit)" for name, (data, _) in benches.items())
-        + f" and {len(corpus)} corpus streams, "
-        f"{time.perf_counter() - t_streams:.1f} s")
+        + f", {ODD} {len(odd[0])} B ({ODD_SAMPLES} x 2 samples, 16-bit, "
+        f"{ODD_SAMPLES // BENCH_BLOCK} frames) and {len(corpus)} corpus "
+        f"streams, {time.perf_counter() - t_streams:.1f} s")
 
     # ---- kernels against their plain versions, on the card ----
     diff = Diff()
@@ -1732,6 +1836,13 @@ def main() -> None:
     safe_ins = rows_lpc_checks(dev, diff, "bench16 safe_lpc rows plan",
                                build_plan(benches["bench16"][0]),
                                safe_lpc=True)
+    # bench16_513: classes whose member counts are not powers of two.
+    odd_ins = {"lpc": rows_lpc_checks(dev, diff, f"{ODD} rows plan",
+                                      build_plan(odd[0]))["lpc"],
+               "lpc64": rows_lpc_checks(dev, diff,
+                                        f"{ODD} safe_lpc rows plan",
+                                        build_plan(odd[0]),
+                                        safe_lpc=True)["lpc_wide"]}
     for name, (data, _) in corpus.items():
         rows_lpc_checks(dev, diff, f"{name} rows plan", build_plan(data))
     # The streaming kernels' synthetic inputs at the bench chunks'
@@ -1743,6 +1854,8 @@ def main() -> None:
                            for g, _ in firsts}),
         sorted({(g.Fp, g.Bp) for g, cb in firsts
                 if g.C == 2 and cb in (8, 16)}))
+    padded = class_pad_checks(np.random.default_rng(513),
+                              lambda a: torch.as_tensor(a, device=dev), diff)
     torch.cuda.synchronize()
     for name, d in ins.items():
         g = d["geom"]
@@ -1756,6 +1869,10 @@ def main() -> None:
         say("kernels", f"{name} rows-engine plan: LPC classes " + ", ".join(
             f"{c} rows {list(a[0].shape)} {a[0].dtype}"
             for c, a in cls.items()))
+    say("kernels", f"{ODD} rows-engine plan: " + ", ".join(
+        f"{k} rows {list(a[0].shape)} {a[0].dtype}"
+        for k, a in odd_ins.items()) + "; lpc and lpc64 bit-exact on "
+        f"seeded classes, member count -> kernel rows: {'; '.join(padded)}")
     say("kernels", f"rice16, rice16_flat and packtail bit-exact on seeded "
         f"inputs: {'; '.join(streamed)} (rice16 also with win and meta, "
         f"packtail with the stack, at an odd offset)")
@@ -1821,7 +1938,7 @@ def main() -> None:
             f"{bounds[name][0]:.4f} ms by {bounds[name][1]} "
             f"({100 * bounds[name][0] / times[name][0]:.1f} % of it); on "
             f"{line}")
-    extra_times(diff, hist32_inputs(dev), rows_ins, safe_ins, line)
+    extra_times(diff, hist32_inputs(dev), rows_ins, safe_ins, odd_ins, line)
     for name in BENCH:
         path_times(name, path_ins[name], line)
     if args.compare_csrc:
@@ -1846,8 +1963,9 @@ def main() -> None:
             launches[k] = launches.get(k, 0) + v
         path_memory(name, data, line)
 
-    # ---- the rows engine's main path, counted per bench stream ----
-    for name, (data, want) in benches.items():
+    # ---- the rows engine's main path, counted per bench stream and on
+    # bench16_513 ----
+    for name, (data, want) in (*benches.items(), (ODD, odd)):
         _kernels.launches.clear()
         r = rows_decode_check(name, data, want)
         got = dict(_kernels.launches)
@@ -1900,6 +2018,10 @@ def main() -> None:
                  for name in ("bench16", "bench24")}
     for name in ("bench16", "bench24"):
         rows_times(benches[name][0], BENCH[name][0] * 2, line, name)
+    rows_times(odd[0], ODD_SAMPLES * 2, line, ODD)
+    for name, data in (("bench16", benches["bench16"][0]),
+                       ("bench24", benches["bench24"][0]), (ODD, odd[0])):
+        staged_line(name, data, line)
 
     # ---- the faults repaired; the multi-device, multi-process and
     # command-line paths ----

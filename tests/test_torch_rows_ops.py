@@ -4,8 +4,11 @@ kernels against the Pallas K6 kernel in interpret mode and the XLA scan
 _lpc_scan (int32, and int64 under x64) over the whole shift range; the
 flat rice16 layout against rice16_unpack_inline in interpret mode; the
 sentinel-safe scatters and clamped gathers; the fixed-order
-integration; the single-buffer Packer; and reconstruct /
-reconstruct_packed on the same padded plan arrays as the JAX ones.
+integration; the single-buffer Packer; reconstruct /
+reconstruct_packed on the same padded plan arrays as the JAX ones; and,
+on streams whose frame count is not a power of two, pad_plan's shapes
+(what the kernels need, not XLA's buckets) and the rows engine's entry
+points against the JAX package's decode.
 Tolerance zero: exact integer decodes. The same numpy inputs, made from
 a seed, go to both packages. The CUDA kernels themselves are held to
 these plain versions on the card by chip_smoke.py."""
@@ -334,9 +337,25 @@ def test_packer_round_trip_matches_jax():
         np.testing.assert_array_equal(g, v)
 
 
+# Streams made here beside the corpus's: 36 frames of stereo LPC, whose
+# class list of 72 entries is padded to 96, a multiple of 32 that is not
+# a power of two.
+_STREAMS = {"36 frames": (36 * 256, 256)}
+
+
+def _data(corpus, name):
+    if name in _STREAMS:
+        from zflac_tpu.encoder import EncoderConfig, encode
+        from zflac_tpu.testing import correlated_stereo
+        n, block = _STREAMS[name]
+        return encode(correlated_stereo(n, 16, seed=21), 44100, 16,
+                      EncoderConfig(block_size=block))
+    return corpus[name][0]
+
+
 def _plan(corpus, name, safe_lpc=False):
     from zflac_tpu.index import build_plan
-    plan = build_plan(corpus[name][0])
+    plan = build_plan(_data(corpus, name))
     if safe_lpc:
         plan.wide = plan.kind == 3
     return plan
@@ -361,20 +380,24 @@ _ORDER = ("rows", "kind", "order", "wasted", "shift", "coeffs", "seeds")
     ("lpc order 32", True, 1),                 # safe_lpc: lpc_wide
     ("fixed order 2", False, 4),               # classes padded 4x
     ("constant heavy", False, 8),
+    ("36 frames", False, 1),                   # lpc list 72 -> 96
 ])
 def test_reconstruct_matches_jax(name, safe_lpc, pad, corpus):
     """The port's reconstruct on the same padded plan arrays
     (pad_plan, plan_to_torch) == the JAX reconstruct (scan LPC, under
     x64 for int64 rows or a wide class), with class lists padded with
-    sentinels to `pad` times their power-of-two length (gathers and
-    scatters of more sentinels than members)."""
+    sentinels to `pad` times their length, a multiple of 32 (gathers
+    and scatters of more sentinels than members)."""
     from zflac_tpu.runtime import reconstruct as jrec
     from zflac_tpu_torch.runtime.decode import pad_plan, plan_to_torch
 
     plan = _plan(corpus, name, safe_lpc)
     arrays, class_idx = pad_plan(plan)
-    Sp = arrays["rows"].shape[0]
-    class_idx = {k: np.concatenate([v, np.full(len(v) * (pad - 1), Sp,
+    S = arrays["rows"].shape[0]
+    assert all(len(v) % 32 == 0 for v in class_idx.values())
+    if name in _STREAMS:  # padded to 32, not to a power of two
+        assert len(class_idx["lpc"]) == 96
+    class_idx = {k: np.concatenate([v, np.full(len(v) * (pad - 1), S,
                                                np.int32)])
                  for k, v in class_idx.items()}
     if safe_lpc:
@@ -422,3 +445,76 @@ def test_reconstruct_packed_matches_jax(name, corpus):
     got = trec.reconstruct_packed(_t(buf), spec=spec, class_names=names,
                                   **_kw(plan))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# Corpus streams whose frame count is not a power of two (3, 5, 6 or 7
+# frames): int32 and int64 rows, fixed and LPC classes, 1 to 8 channels,
+# a block of 1021 samples (not a multiple of 8), 33-bit side channels,
+# variable blocking and an unknown total.
+_ODD_FRAMES = ("lpc order 8", "fixed order 2", "bps 24",
+               "uncommon blocksize", "channels 5", "surround 8ch 24bit",
+               "hi-res 24/96", "hi-res 32bit left_side", "unknown length",
+               "variable blocksize")
+
+
+@pytest.mark.skipif(not native_available(), reason="needs native")
+@pytest.mark.parametrize("name", _ODD_FRAMES)
+def test_pad_plan_pads_only_what_the_kernels_need(name, corpus):
+    """pad_plan's shapes: rows (S, B rounded up to 8) with zero columns
+    past B, the per-subframe arrays at S and channel_code at F (no
+    power-of-two frame axis), and each class list ceil32 long, its tail
+    only the sentinel S."""
+    from zflac_tpu_torch.index import build_plan
+    from zflac_tpu_torch.runtime.decode import pad_plan
+
+    plan = build_plan(corpus[name][0])
+    F, S, B = plan.num_frames, plan.num_subframes, plan.max_block
+    assert F & (F - 1), F
+    arrays, class_idx = pad_plan(plan)
+    assert arrays["rows"].shape == (S, -(-B // 8) * 8)
+    np.testing.assert_array_equal(arrays["rows"][:, :B], plan.rows)
+    assert not arrays["rows"][:, B:].any()
+    for k in ("kind", "order", "wasted", "shift"):
+        assert arrays[k].shape == (S,), k
+    assert arrays["coeffs"].shape == (S, 32)
+    assert arrays["seeds"].shape == (S, 4)
+    assert arrays["channel_code"].shape == (F,)
+    classes = {k: v for k, v in plan.classes().items() if len(v)}
+    assert set(class_idx) == set(classes)
+    for k, idx in classes.items():
+        got = class_idx[k]
+        assert got.dtype == np.int32 and len(got) == -(-len(idx) // 32) * 32
+        np.testing.assert_array_equal(got[:len(idx)], idx)
+        assert (got[len(idx):] == S).all(), k
+
+
+_JAX_PCM = {}
+
+
+def _rows_entry(entry, data):
+    import zflac_tpu_torch as zt
+    if entry == "decode":
+        return zt.decode(data, device="cpu").interleaved
+    if entry == "decode_pipelined":
+        return zt.decode_pipelined(data, chunk_frames=3,
+                                   device="cpu").interleaved
+    return np.concatenate(list(zt.stream_decode(data, chunk_frames=3,
+                                                device="cpu")))
+
+
+@pytest.mark.skipif(not native_available(), reason="needs native")
+@pytest.mark.parametrize("entry", ["decode", "decode_pipelined",
+                                   "stream_decode"])
+@pytest.mark.parametrize("name", _ODD_FRAMES)
+def test_rows_entry_points_at_kernel_shapes(name, entry, corpus):
+    """decode, decode_pipelined(chunk_frames=3) and stream_decode on the
+    CPU, through pad_plan's shapes, == the JAX package's decode."""
+    import zflac_tpu
+
+    data = corpus[name][0]
+    if name not in _JAX_PCM:
+        _JAX_PCM[name] = zflac_tpu.decode(data).interleaved
+    want = _JAX_PCM[name]
+    got = _rows_entry(entry, data)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)

@@ -284,26 +284,6 @@ def test_sharded_pack2_chunk_shapes_must_agree(monkeypatch, corpus):
                                         _cpu_mesh(2), chunk_frames=4)
 
 
-def test_chunks_of_one_call_share_one_geometry(corpus):
-    """What is kept of the JAX package's repack_common: chunks whose
-    geometries differ raise ValueError."""
-    from zflac_tpu_torch.bitio import BitReader
-    from zflac_tpu_torch.oracle import parse_metadata
-    from zflac_tpu_torch.runtime import device as rt
-
-    data = corpus["constant heavy"][0]
-    br = BitReader(data)
-    info = parse_metadata(br)
-    chunks = rt.scan_pack2_chunks(data, br.pos // 8, info, 1,
-                                  rt._bucket_block(info.max_block_size),
-                                  False)
-    cks = [ck for _, ck in chunks]
-    assert len({ck.spec_key() for ck in cks}) > 1
-    with pytest.raises(ValueError, match="specs diverge"):
-        pshard.require_one_geometry(cks)
-    assert pshard.require_one_geometry(cks[:1]) == cks[0].spec_key()
-
-
 def test_stream_parameters_must_not_change(monkeypatch, corpus):
     """Chunks that disagree on the sample rate raise
     InconsistentParameters, as in the JAX function."""

@@ -3,13 +3,15 @@
 
 The boundary-exchange design of longstream.py with the shards in
 DIFFERENT PROCESSES, each with its own devices. Every table that
-crosses processes is host data on both ends (boundary rows, chunk
-geometry, block sizes, PCM slices), so the collectives run on CPU
-tensors over the gloo backend, also when the decode itself runs on a
-card; int64 counters cross as they are.
+crosses processes is host data on both ends (boundary rows, flags,
+block sizes, PCM slices), so the collectives run on CPU tensors over
+the gloo backend, also when the decode itself runs on a card; int64
+counters cross as they are. No buffer layout crosses: each process
+reconstructs its own chunks or shards in their own shapes.
 
-Per process p of P (after torch.distributed.init_process_group; a
-process outside any group is a world of one):
+The long-stream path, per process p of P (after
+torch.distributed.init_process_group; a process outside any group is a
+world of one):
   1. every process parses STREAMINFO and computes the deterministic
      anchor table (sync-scan + CRC-validated frame starts at the P
      byte-range boundaries): header-scan work only, no decode;
@@ -23,6 +25,10 @@ process outside any group is a world of one):
      longest shard, int32 lanes);
   5. every process assembles the full PCM, verifies the stream MD5 and
      returns an identical DecodedFLAC.
+The pack2 path (decode_pack2_distributed) takes the same steps with
+one packed chunk per local device, each scanned once in its own
+geometry, after one exchanged flag that sends every process down the
+same branch.
 
 Run one process standalone:
   python -m zflac_tpu_torch.parallel.distributed <stream.flac> <out.npy> \\
@@ -33,6 +39,7 @@ Run one process standalone:
 from __future__ import annotations
 
 import datetime
+import time
 
 import numpy as np
 import torch
@@ -40,18 +47,16 @@ import torch.distributed as dist
 
 from .. import _kernels
 from ..bitio import BitReader
-from ..errors import InvalidChecksum, InvalidFrameHeader
+from ..errors import InvalidChecksum
 from ..index import native_indexer
-from ..index.native_indexer import PACK2_CLASSES
 from ..oracle import parse_metadata
 from ..result import DecodedFLAC, container_dtype
-from ..runtime.decode import (_assemble, _finish, _pad_pow2,
-                              _run_reconstruct)
-from ..runtime.device import (_bucket_block, apply_stop_cut, chunk_parts,
+from ..runtime.decode import _assemble, _finish, _run_reconstruct
+from ..runtime.device import (apply_stop_cut, chunk_parts,
                               reconstruct_chunks, resolve_device)
 from ..utils.log import get_logger
 from .longstream import boundary_exchange, range_starts
-from .shard import chunk_samples, make_mesh, require_one_geometry
+from .shard import chunk_samples, make_mesh
 
 _log_shard = get_logger("shard")
 
@@ -153,16 +158,17 @@ def decode_longstream_distributed(data: bytes, check_crc: bool = False,
     )
 
 
-def union_chunks(data: bytes, info, first: int, num_local: int,
-                 check_crc: bool = False):
+def range_chunks(data: bytes, info, first: int, num_local: int,
+                 check_crc: bool = False, stats: dict | None = None):
     """Steps 1-3 of decode_pack2_distributed: this process's pack2
-    chunks, one per local byte range, scanned in the geometry that
-    every chunk of every process shares. Returns (the range starts,
-    the chunks), or (the range starts, None) when some process's range
-    declined the scan or was left without a frame start; the flag is
-    exchanged, so every process gets None together. Raises
-    InvalidFrameHeader, in every process, when a forced re-scan does
-    not land on its range's end."""
+    chunks, one per local byte range, each in the geometry of its own
+    scan. Returns (the range starts, the chunks), or (the range starts,
+    None) when some process's range declined the scan, did not land on
+    its range's end or was left without a frame start; the flag is
+    exchanged, so every process gets None together. Fills `stats` with
+    the host-clock time of the anchor table and the scans (`scan_ms`)
+    and `rescan_ms` 0.0: no range is scanned twice."""
+    t_scan = time.perf_counter()
     p, Pn = _world()
     L = num_local
 
@@ -172,74 +178,28 @@ def union_chunks(data: bytes, info, first: int, num_local: int,
                else len(data))
               for d in range(p * L, (p + 1) * L) if d < len(starts)]
 
-    # 2. natural-geometry scan of our local ranges.
+    # 2. one natural-geometry scan of each local range.
     cks = []
     ok = 1
     for a, stop in ranges:
         ck = native_indexer.pack2_range(
             data, a, stop, info, check_crc=check_crc, max_frames=1 << 20)
-        if ck is None or ck.landed < stop:
+        if ck is None or ck.landed != stop:
             ok = 0
         else:
             cks.append(ck)
     if not cks:
-        # A process with zero anchor ranges has no chunk to size a
-        # buffer from: everyone falls back to the longstream path,
-        # which handles empty shards.
+        # A process with zero anchor ranges has no chunk: everyone falls
+        # back to the longstream path, which handles empty shards.
         ok = 0
+    if stats is not None:
+        stats.update(scan_ms=(time.perf_counter() - t_scan) * 1e3,
+                     rescan_ms=0.0)
 
-    # 3. geometry union exchange: per process, the max over its local
-    # chunks of every capacity plus the ok flag.
-    def cap(fn, default=0):
-        return max((fn(ck) for ck in cks), default=default)
-
-    def class_n(ck, name):
-        return dict((n, cn) for n, cn, _ in ck.classes).get(name, 0)
-
-    row = np.array(
-        [ok, cap(lambda c: c.F), cap(lambda c: c.B),
-         cap(lambda c: c.W, 8), cap(lambda c: c.n_patch_p),
-         cap(lambda c: int(c.wide))] +
-        [cap(lambda c, n=n: class_n(c, n)) for n in PACK2_CLASSES],
-        dtype=np.int64)
-    g = _allgather_rows(row)  # [Pn, 6 + n_classes]
-    if not int(g[:, 0].min()):
+    # 3. only the flag crosses: each process reconstructs and flattens
+    # its own chunks, so no buffer layout has to agree across processes.
+    if not int(_allgather_rows(np.array([ok], dtype=np.int64)).min()):
         return starts, None
-    FpU = _pad_pow2(max(1, int(g[:, 1].max())))
-    BpU = _bucket_block(max(int(g[:, 2].max()), 16))
-    WU = int(g[:, 3].max())
-    n_patch_pU = int(g[:, 4].max())
-    wideU = bool(g[:, 5].max())
-    cnpU = [int(g[:, 6 + i].max()) for i in range(len(PACK2_CLASSES))]
-
-    # Re-scan with the forced union geometry: the class-sorted buffer
-    # layout is deterministic given (Fp, Bp, W, class caps, patch cap,
-    # wide), so every process derives the same section offsets.
-    cks = [native_indexer.pack2_range(
-               data, a, stop, info, check_crc=check_crc, max_frames=FpU,
-               force_fp=FpU, force_bp=BpU, force_w=WU, force_class_np=cnpU,
-               force_patch_np=n_patch_pU, force_wide=wideU)
-           for a, stop in ranges]
-    # The union geometry only widens capacities, so a forced re-scan of
-    # a range that succeeded naturally must land at the same stop. A
-    # violation means the processes would disagree on the buffer
-    # layout: proceeding would produce corrupt PCM, and a fallback or
-    # a raise in one process alone would leave the others waiting in a
-    # collective. So the outcome is exchanged, and every process raises
-    # when any range of any process landed elsewhere. Not an assert: it
-    # must survive python -O.
-    missed = [(a, stop, getattr(ck, "landed", None))
-              for (a, stop), ck in zip(ranges, cks)
-              if ck is None or ck.landed != stop]
-    landed = _allgather_rows(np.array([not missed], dtype=np.int64))[:, 0]
-    if not landed.all():
-        where = "; ".join(f"[{a}, {stop}) landed at {at}"
-                          for a, stop, at in missed) or "another process"
-        raise InvalidFrameHeader(
-            f"pack2 union re-scan in process(es) "
-            f"{np.flatnonzero(landed == 0).tolist()}: {where} "
-            "(geometry mismatch)")
-    require_one_geometry(cks)
     return starts, cks
 
 
@@ -253,20 +213,21 @@ def decode_pack2_distributed(data: bytes, check_crc: bool = False,
 
     Per process p of P:
       1. anchor table over P*L byte ranges (identical everywhere);
-      2. process p scans its L ranges with the C++ pack2 scan (natural
-         geometry);
-      3. the chunk GEOMETRY (frame/patch/class counts, W, wide flag)
-         is gathered so every process computes the same union; each
-         process re-scans its ranges with the forced union geometry,
-         and whether every re-scan landed on its range's end is
-         gathered too;
+      2. process p scans each of its L ranges once with the C++ pack2
+         scan, in the geometry that scan gives it (its own Fp, class
+         sets and wide flag);
+      3. whether every range was scanned and landed on its end is
+         gathered (one flag a process); no geometry crosses, since
+         only flat PCM and block sizes leave a process;
       4. chunk l is uploaded to and reconstructed on local device l,
          all queued before any is waited for, and the sample counts
          the buffers carry are summed on the devices and all_reduced;
       5. per-process PCM and block-size tables cross via all_gather;
          every process assembles the full stream, applies the
          reference's STREAMINFO-total stop semantics, verifies MD5,
-         and returns an identical DecodedFLAC.
+         and returns an identical DecodedFLAC, whose stats hold this
+         process's host-clock `scan_ms` (steps 1-2) and `rescan_ms`
+         (0.0), the keys decode_to_device reports.
 
     Falls back to decode_longstream_distributed when any process's
     range declines the pack2 scan (the flag itself is exchanged, so
@@ -275,8 +236,9 @@ def decode_pack2_distributed(data: bytes, check_crc: bool = False,
     Pn = _world()[1]
     br = BitReader(data)
     info = parse_metadata(br)
-    starts, cks = union_chunks(data, info, br.pos // 8, len(devices),
-                               check_crc=check_crc)
+    times = {}
+    starts, cks = range_chunks(data, info, br.pos // 8, len(devices),
+                               check_crc=check_crc, stats=times)
     if cks is None:
         return decode_longstream_distributed(
             data, check_crc=check_crc, verify_md5=verify_md5,
@@ -339,7 +301,7 @@ def decode_pack2_distributed(data: bytes, check_crc: bool = False,
         interleaved=out,
         stats={"shards": len(starts), "processes": Pn,
                "frames": int(len(all_bs)),
-               "engine": "pack2-distributed"},
+               "engine": "pack2-distributed", **times},
     )
 
 

@@ -28,7 +28,6 @@ from ..bitio import BitReader
 from ..index import native_indexer
 from ..oracle import parse_metadata
 from ..plan import StreamPlan
-from ..runtime.decode import _pad_pow2
 from ..runtime.device import (_bucket_block, assemble_chunks, cut_at_total,
                               estimate_total_frames, reconstruct_chunks,
                               resolve_device, stream_chunks, upload)
@@ -43,6 +42,16 @@ _SHARD_ARRAYS = ("rows", "kind", "order", "wasted", "shift", "coeffs",
 _SHARD_CLASSES = {"idx_const": "const", "idx_verb": "verbatim",
                   "idx_fixed": "fixed", "idx_lpc": "lpc",
                   "idx_lpc_wide": "lpc_wide"}
+
+
+def _pad_pow2(n: int) -> int:
+    """The least power of two >= n: the JAX functions' shapes that the
+    sharded paths keep (shard_plan's class widths, decode_to_device_
+    sharded's chunk size), which tests hold equal to theirs."""
+    p = 1
+    while p < n:
+        p *= 2
+    return p
 
 
 def make_mesh(devices=None) -> list:
@@ -177,18 +186,6 @@ def reconstruct_sharded(plan: StreamPlan, mesh):
 # ---------------------------------------------------------------------------
 # pack2 sharded decode: one packed chunk per device and round
 # ---------------------------------------------------------------------------
-
-def require_one_geometry(cks) -> tuple:
-    """The spec_key every chunk of `cks` shares. Raises ValueError when
-    they diverge: the multi-process decode scans the chunks of one call
-    with one forced geometry, so every process derives the same
-    buffer layout."""
-    spec = cks[0].spec_key()
-    for ck in cks[1:]:
-        if ck.spec_key() != spec:
-            raise ValueError("pack2 chunk specs diverge")
-    return spec
-
 
 def chunk_samples(buf, geom):
     """The samples a chunk's buffer says it holds (block size summed

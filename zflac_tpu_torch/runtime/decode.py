@@ -4,8 +4,9 @@ reconstruction -> assembly -> MD5 -> DecodedFLAC.
 
 The host indexer (index.build_plan, or index_range for a byte range;
 the port's copy of the JAX package's) builds a StreamPlan.
-_run_reconstruct pads it to the JAX package's bucketed shapes and
-sentinel-padded class lists, uploads it (one pinned, non-blocking copy
+_run_reconstruct pads it to the shapes the kernels need (pad_plan: the
+time axis to a multiple of 8, sentinel-padded class lists of whole
+warp-blocks), uploads it (one pinned, non-blocking copy
 of one packed buffer for int32 streams; one such copy per array for
 int64 streams), reconstructs [F, B, C] PCM on the device
 (runtime/reconstruct.py: the lpc kernel at int32, lpc64 at int64) and
@@ -44,57 +45,42 @@ _PLAN_ARRAYS = ("rows", "kind", "order", "wasted", "shift", "coeffs",
                 "seeds", "channel_code")
 
 
-def _pad_pow2(n: int, lo: int = 1) -> int:
-    p = lo
-    while p < n:
-        p *= 2
-    return p
+# The lpc kernels run the time axis in groups of 8 steps (ops/lpc.py).
+TIME_GROUP = 8
+# Class lists are padded to whole warp-blocks of lanes: the lpc ring's
+# kLanes (csrc/lpc_ring.cuh), so every lane slice of a gathered class
+# keeps the row stride that allows its 16-byte cp.async copies.
+CLASS_GROUP = 32
 
 
-def _bucket_block(b: int) -> int:
-    """Pad the sample axis to a multiple of 128 (the JAX package's
-    buckets, so both packages see the same shapes)."""
-    return max(128, -(-b // 128) * 128)
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def pad_plan(plan: StreamPlan):
-    """The plan's arrays padded as the JAX package's _run_reconstruct
-    pads them: rows [Sp, Bp] with Bp = _bucket_block(B), Fp = pow2 >= F
-    and Sp = Fp * C; per-subframe arrays to Sp; channel_code to Fp; and
-    each nonempty class's gather list to a power of two, padded with the
-    sentinel Sp. The JAX package also pads the lpc class to 128 entries
-    for its lane-blocked Pallas kernel on a TPU; the CUDA kernel takes
-    any count, so it pads as the JAX scan path does. Returns (arrays:
-    name -> numpy, class_idx: name -> int32 numpy)."""
-    F = plan.num_frames
-    C = plan.channels
+    """The plan's arrays in the shapes the rows engine's kernels need:
+    rows [S, B8] with B8 = B rounded up to a multiple of TIME_GROUP
+    (zero columns after each block, which change nothing before them);
+    the per-subframe arrays at their length S and channel_code at F, as
+    the plan holds them (not copies); each nonempty class's gather list
+    padded with the sentinel S to a multiple of CLASS_GROUP. The JAX
+    package pads F to a power of two, B to a multiple of 128 and every
+    class list to a power of two, so that XLA compiles few shapes; the
+    port compiles nothing per shape. Returns (arrays: name -> numpy,
+    class_idx: name -> int32 numpy)."""
     S = plan.num_subframes
     B = plan.max_block
-    Bp = _bucket_block(B)
-    Fp = _pad_pow2(F)
-    Sp = Fp * C
-
-    rows = np.zeros((Sp, Bp), dtype=plan.rows.dtype)
-    rows[:S, :B] = plan.rows
-
-    def pad1(a, n):
-        out = np.zeros(n, dtype=a.dtype)
-        out[:len(a)] = a
-        return out
-
-    coeffs = np.zeros((Sp, 32), dtype=np.int32)
-    coeffs[:S] = plan.coeffs_rev
-    seeds = np.zeros((Sp, 4), dtype=plan.fixed_seeds.dtype)
-    seeds[:S] = plan.fixed_seeds
-    arrays = dict(rows=rows, kind=pad1(plan.kind, Sp),
-                  order=pad1(plan.order, Sp), wasted=pad1(plan.wasted, Sp),
-                  shift=pad1(plan.shift, Sp), coeffs=coeffs, seeds=seeds,
-                  channel_code=pad1(plan.channel_code, Fp))
+    rows = np.zeros((S, _round_up(B, TIME_GROUP)), dtype=plan.rows.dtype)
+    rows[:, :B] = plan.rows
+    arrays = dict(rows=rows, kind=plan.kind, order=plan.order,
+                  wasted=plan.wasted, shift=plan.shift,
+                  coeffs=plan.coeffs_rev, seeds=plan.fixed_seeds,
+                  channel_code=plan.channel_code)
     class_idx = {}
     for name, idx in plan.classes().items():
         if len(idx) == 0:
             continue
-        padded = np.full(_pad_pow2(len(idx)), Sp, dtype=np.int32)
+        padded = np.full(_round_up(len(idx), CLASS_GROUP), S, dtype=np.int32)
         padded[:len(idx)] = idx
         class_idx[name] = padded
     return arrays, class_idx
@@ -148,7 +134,7 @@ def stage_plan(plan: StreamPlan) -> StagedPlan:
 def launch_plan(staged: StagedPlan, device):
     """The device half: upload the staged plan to `device` (one copy of
     the packed buffer, else one per array) and queue its
-    reconstruction. Returns the PCM tensor [Fp, Bp, C] without waiting
+    reconstruction. Returns the PCM tensor [F, B8, C] without waiting
     for it."""
     if staged.buf is not None:
         return reconstruct_packed(upload(staged.buf, device),
@@ -162,8 +148,8 @@ def launch_plan(staged: StagedPlan, device):
 
 def _run_reconstruct(plan: StreamPlan, device, async_: bool = False):
     """Pad the plan, upload it to `device` and reconstruct it there.
-    Returns host PCM [F, B, C] (container dtype), or (device tensor
-    [Fp, Bp, C], F) when async_ (launched, not waited for)."""
+    Returns host PCM [F, B8, C] (container dtype), or (device tensor
+    [F, B8, C], F) when async_ (launched, not waited for)."""
     pcm = launch_plan(stage_plan(plan), device)
     if async_:
         return pcm, plan.num_frames

@@ -11,9 +11,17 @@ both sides decode those files. Each measurement is a fresh process
 started in one root, so it imports that checkout's zflac_tpu_torch
 for the timed code alone: the worker reaches only entry points the
 port has had since it gained its sharded decode (decode_to_device,
-decode, decode_to_device_sharded, stream_chunks, pack2_range,
-chunk_to_torch, reconstruct_pack2), so the parent may be any commit
-from then on. It times, on bench16 and bench24,
+decode, decode_to_device_sharded, decode_pack2_distributed,
+stream_chunks, pack2_range, build_plan, stage_plan, launch_plan,
+chunk_to_torch, reconstruct_pack2), so the
+parent may be any commit from then on. It times decode(engine="torch")
+on bench16_513 (bench16 cut to 513 frames) and, after each call, its
+six phases run one by one (host clock, medians of 5 after one warm-up),
+with the bytes it stages; and decode_pack2_distributed
+in a world of one over two ranges on cuda:0 on bench16 (median of 5 on
+the host clock after one warm-up), with the medians of the time spent
+in pack2_range a decode (each range's scan and any re-scan) and of its
+calls. It times, on bench16 and bench24,
 decode_to_device (synchronized, with the medians of its scan_ms and
 rescan_ms stats), decode_to_device_sharded over four slots of cuda:0
 (synchronized) and decode(engine="torch"), each the median of 5 on the
@@ -50,9 +58,12 @@ import torch
 import zflac_tpu_torch
 from zflac_tpu_torch import format as fmt
 from zflac_tpu_torch.bitio import BitReader
+from zflac_tpu_torch.index import build_plan, native_indexer
 from zflac_tpu_torch.index.native_indexer import pack2_range
 from zflac_tpu_torch.oracle import parse_metadata
+from zflac_tpu_torch.parallel.distributed import decode_pack2_distributed
 from zflac_tpu_torch.parallel.shard import decode_to_device_sharded
+from zflac_tpu_torch.runtime import decode as rd
 from zflac_tpu_torch.runtime import device as rt
 
 mesh = [torch.device("cuda", 0)] * 4
@@ -78,11 +89,99 @@ def cuda_ms(fn, reps=25):
     return statistics.median(times)
 
 
+# fn once to warm up, then the median of 5 synchronized calls on the
+# host clock, in ms.
+def median_ms(fn):
+    fn()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - a) * 1e3)
+    return statistics.median(walls)
+
+
+# decode_pack2_distributed in a world of one over two ranges on cuda:0:
+# its time, and the medians of the time spent in pack2_range (the scans,
+# and any re-scan) and of its calls a decode.
+def pack2_distributed(data):
+    real = native_indexer.pack2_range
+    scans, per_call = [], []
+
+    def timed(*args, **kw):
+        a = time.perf_counter()
+        ck = real(*args, **kw)
+        scans.append((time.perf_counter() - a) * 1e3)
+        return ck
+
+    def call():
+        scans.clear()
+        decode_pack2_distributed(data, devices=["cuda:0"] * 2)
+        per_call.append((sum(scans), len(scans)))
+
+    native_indexer.pack2_range = timed
+    try:
+        ms = median_ms(call)
+    finally:
+        native_indexer.pack2_range = real
+    return (ms, statistics.median(s for s, _ in per_call[1:]),
+            statistics.median(n for _, n in per_call[1:]))
+
+
+# decode(engine="torch") on the card and, after each call, the same
+# steps run one by one (build_plan, stage_plan, launch_plan, the device
+# wait, the copy back and assembly, MD5): after one warm-up, the medians
+# of 5 of the whole call and of each phase on the host clock, and the
+# bytes stage_plan stages.
+ROWS_PHASES = ("plan build", "padding and packing", "H2D + enqueue",
+               "device wait", "D2H + assembly", "MD5 + normalization")
+
+
+def rows_phases(name, data):
+    zflac_tpu_torch.decode(data, engine="torch", device="cuda")
+    walls, phases = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        zflac_tpu_torch.decode(data, engine="torch", device="cuda")
+        walls.append((time.perf_counter() - a) * 1e3)
+        torch.cuda.synchronize()
+        ts = [time.perf_counter()]
+        plan = build_plan(data)
+        ts.append(time.perf_counter())
+        staged = rd.stage_plan(plan)
+        ts.append(time.perf_counter())
+        pcm = rd.launch_plan(staged, "cuda")
+        ts.append(time.perf_counter())
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter())
+        host = rd._assemble(plan, pcm[:plan.num_frames].cpu().numpy())
+        ts.append(time.perf_counter())
+        rd._finish(host, plan.info.bits_per_sample, plan.info.md5, True)
+        ts.append(time.perf_counter())
+        phases.append([(b - a) * 1e3 for a, b in zip(ts, ts[1:])])
+    res = {f"{name} decode(engine=torch) ms": statistics.median(walls),
+           f"{name} rows staged bytes": staged.buf.nbytes}
+    for i, label in enumerate(ROWS_PHASES):
+        res[f"{name} rows {label} ms"] = statistics.median(
+            p[i] for p in phases)
+    return res
+
+
 out = {}
 for arg in sys.argv[1:]:
     name, path = arg.split("=", 1)
     with open(path, "rb") as f:
         data = f.read()
+    if name == "bench16_513":  # the rows engine's stream alone
+        out.update(rows_phases(name, data))
+        continue
+    if name == "bench16":
+        key = f"{name} decode_pack2_distributed 2 ranges"
+        (out[f"{key} ms"], out[f"{key} pack2_range ms"],
+         out[f"{key} pack2_range calls"]) = pack2_distributed(data)
     stats = []
     calls = {
         "decode_to_device": lambda: stats.append(
@@ -94,15 +193,7 @@ for arg in sys.argv[1:]:
             data, engine="torch", device="cuda"),
     }
     for label, fn in calls.items():
-        fn()
-        walls = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            a = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - a) * 1e3)
-        out[f"{name} {label} ms"] = statistics.median(walls)
+        out[f"{name} {label} ms"] = median_ms(fn)
     for key in ("scan_ms", "rescan_ms"):
         out[f"{name} decode_to_device {key}"] = statistics.median(
             st[key] for st in stats[1:])
@@ -186,6 +277,9 @@ def main() -> None:
     for name in ("bench16", "bench24"):
         streams.bench_stream(name)
         files.append(f"{name}={streams.bench_path(name)}")
+    streams.bench_stream("bench16", streams.ODD_SAMPLES)
+    files.append("bench16_513="
+                 f"{streams.bench_path('bench16', streams.ODD_SAMPLES)}")
     for side, root in sides.items():
         measure(root, files)
         print(f"{side}: warm-up process done ({root})", flush=True)
@@ -197,6 +291,8 @@ def main() -> None:
             print(f"pair {i} {side}: " + json.dumps(runs[side][-1]),
                   flush=True)
     for metric in runs["parent"][0]:
+        if metric not in runs["change"][0]:
+            continue
         p = [r[metric] for r in runs["parent"]]
         c = [r[metric] for r in runs["change"]]
         wins = sum(b < a for a, b in zip(p, c))

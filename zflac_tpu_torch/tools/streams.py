@@ -10,6 +10,9 @@ root: correlated stereo, block 4096, 44.1 kHz.
 
 `samples` overrides a stream's length (the CPU tests run the tools at
 2**14); the cache file's name carries the length, bits and stereo mode.
+bench16 at ODD_SAMPLES (513 frames, one past a power of two) is the
+rows engine's stream whose frame axis the JAX package would pad to
+1024.
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ BENCH = {
     "bench24": (1 << 21, 24, None, ("rice16", "lpc2w")),
     "bench32ms": (1 << 20, 32, "mid_side", ("rice16", "lpc2w33")),
 }
+# bench16's length cut to 513 frames (bench_stream("bench16",
+# ODD_SAMPLES)).
+ODD_SAMPLES = 513 * BENCH_BLOCK
 # The bench stream of each bit depth.
 BY_BPS = {16: "bench16", 24: "bench24", 32: "bench32ms"}
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
