@@ -20,10 +20,16 @@ build/zflac_tpu_torch/, then:
      2**21 samples at 24 bits; bench32ms: 2**20 samples at 32 bits,
      mid-side, whose 33-bit side channels make wide chunks), bench16_513
      (bench16 cut to 513 frames, one past a power of two, for the rows
-     engine) and every corpus stream;
+     engine), bench16_track (bench16's signal at a 3 min 30 s track's
+     length, 2261 frames, whose decode_to_device chunks of 282-283
+     frames are not near a power of two) and every corpus stream;
   4. holds each kernel bit for bit against its plain PyTorch version on
      the card: rice16, rice16_flat, lpc2, packtail, lpc2w and lpc2w33 on
-     every stream's real pack2 chunk sections, lpc and lpc64 on the LPC
+     every stream's real pack2 chunk sections in the card layout that
+     decode_to_device reconstructs (bench16_track's 8 chunks, corpus
+     chunks whose Bp is no multiple of 128 and of several classes, and
+     three_class_stream, whose LPC class starts at lane 64, among
+     them), lpc and lpc64 on the LPC
      classes of every stream's rows-engine plan (gathered as the rows
      engine gathers them, the safe_lpc plans of bench16 and bench16_513
      too, and classes of 1, 7, 33 and 1026 members padded to a multiple
@@ -45,17 +51,21 @@ build/zflac_tpu_torch/, then:
      lpc and lpc64 on bench16_513's classes (n 1056), the redesigned
      kernels at hist 32, and rice16, packtail and the LPC
      kernel on each chunk decode_to_device reconstructs for bench16,
-     bench24 and bench32ms, each chunk in the geometry of its own scan
+     bench24, bench32ms and bench16_track, each chunk in the geometry of
+     its own scan
      (the LPC kernels in ns a step), summed per call against the summed
      bound;
   5. drives both main paths, each with the launch counters reset just
      before and read just after (each kernel of the path must have
-     launched): decode_to_device on each bench stream, and the rows
-     engine, decode(engine="torch"), on each bench stream and
-     bench16_513; checks the
+     launched): decode_to_device on each bench stream and on
+     bench16_track (whose launches must be those of its chunks'
+     classes), and the rows engine, decode(engine="torch"), on each
+     bench stream and bench16_513; checks the
      PCM against the encoder's input and the native C++ decoder, with
      the stream MD5 verified, and prints each bench stream's chunk
-     geometries, the scan-buffer bytes one call uploads and the device
+     geometries (F, Fp, lanes, class members and lanes), the lanes and
+     scan-buffer bytes one call uploads beside those of the JAX
+     package's layout (one more host scan, not uploaded) and the device
      memory one call adds at its peak; then the same for every corpus
      stream through both engines, bench16 in 256-frame chunks, and a
      corrupted stream that must raise InvalidChecksum;
@@ -64,7 +74,8 @@ build/zflac_tpu_torch/, then:
      bench24, decode_range on bench16 (three ranges) and decode_tolerant
      on a corrupted corpus stream (against the same call on the CPU);
   7. times the device reconstruction of each bench chunk, the whole
-     decode_to_device call on bench16 and bench24, and decode(engine=
+     decode_to_device call on bench16, bench24 and bench16_track, and
+     decode(engine=
      "torch") on both and on bench16_513, end to end and in its phases,
      with the bytes the rows engine stages for each of the three (its
      rows, all it uploads) and its class lists' member counts and n;
@@ -206,9 +217,10 @@ from zflac_tpu_torch.tools import fuzz_native, kernel_ab, profile_pack2
 from zflac_tpu_torch.tools.kernel_inputs import packtail_inputs, rice_groups
 from zflac_tpu_torch.tools.kernel_sass import kernel_name
 from zflac_tpu_torch.tools.streams import (BENCH, BENCH_BLOCK, BY_BPS,
-                                           ODD_SAMPLES, bench_path,
-                                           bench_pcm, bench_stream,
-                                           first_chunk)
+                                           ODD_SAMPLES, TRACK_SAMPLES,
+                                           bench_path, bench_pcm,
+                                           bench_stream, first_chunk,
+                                           three_class_stream)
 from zflac_tpu_torch.tools.vectors import (EXAMPLE_2, EXAMPLE_2_SAMPLES,
                                            all_vectors, declared_total_cut,
                                            expected_output)
@@ -217,9 +229,18 @@ from zflac_tpu_torch.utils.cudatime import REPS, cuda_ms, gpu_line, graph_ms
 # bench16 cut to 513 frames (tools/streams.py ODD_SAMPLES): a frame
 # count one past a power of two, for the rows engine.
 ODD = "bench16_513"
+# bench16's signal at a 3 min 30 s track's length (TRACK_SAMPLES, 2261
+# frames): decode_to_device's 8 ranges of 282-283 frames are not near a
+# power of two, so its chunks show the card layout's Fp and lanes.
+TRACK = "bench16_track"
 # The kernels each bench stream's rows-engine path must launch.
 ROWS_PATH = {"bench16": ("lpc",), "bench24": ("lpc64",),
              "bench32ms": ("lpc64",), ODD: ("lpc",)}
+# Corpus streams whose card-layout chunk must show a Bp that is no
+# multiple of 128 (the JAX layout's is), and one of several classes.
+CARD_BP_CASES = ("blocksize 16", "blocksize 192", "blocksize 725",
+                 "blocksize 1000")
+MULTI_CLASS_CASE = "constant heavy"
 # Batches for the plain lpc and lpc64 (4096 Python-loop steps a call).
 PLAIN_LPC_REPS = 5
 # Frames per chunk for decode_pipelined and stream_decode (8 and 4
@@ -328,7 +349,7 @@ def kernel_checks(dev, diff: Diff, what: str, ck) -> dict:
                    packtail(stack, *tail, Fp=geom.Fp, container_bits=cb),
                    packtail_ref(stack, *tail, Fp=geom.Fp,
                                 container_bits=cb))
-    return dict(buf=buf, geom=geom, win=win, meta=meta, lpc=lpc,
+    return dict(ck=ck, buf=buf, geom=geom, win=win, meta=meta, lpc=lpc,
                 lpc_name=lpc_name, stack=stack, tail=tail, cb=cb)
 
 
@@ -859,15 +880,69 @@ def e2e_times(data: bytes, n_samples: int, line: str, what: str) -> float:
     return e2e
 
 
+def jax_chunks(data: bytes, cks) -> list:
+    """The same chunks in the JAX package's layout ("jax"), as the port
+    scanned them before the card layout: each chunk's byte range
+    scanned once more on the host (Bp a multiple of 128, the chunk's
+    W), and not uploaded."""
+    br = BitReader(data)
+    info = parse_metadata(br)
+    starts = [br.pos // 8] + [ck.landed for ck in cks[:-1]]
+    Bp = rt.slot_block(max(info.max_block_size, 16))
+    out = []
+    for a, ck in zip(starts, cks):
+        j = native_indexer.pack2_range(data, a, ck.landed, info,
+                                       max_frames=ck.F, force_bp=Bp,
+                                       force_w=ck.W, layout="jax")
+        if j is None or (j.F, j.landed) != (ck.F, ck.landed):
+            raise AssertionError("the jax-layout scan of a chunk's range "
+                                 "differs from the card layout's")
+        out.append(j)
+    return out
+
+
+def layout_times(dev, diff: Diff, name: str, data: bytes, card: list,
+                 line: str) -> None:
+    """decode_to_device's chunks of `name` in both layouts, on the same
+    byte ranges: the JAX-layout chunks (jax_chunks) with every kernel
+    held against its plain version, path_times' kernel sums on them,
+    and reconstruct_pack2 summed over the chunks of each layout (CUDA
+    graphs, in turns: card, JAX, JAX, card). `card` is kernel_checks'
+    dicts of the card-layout chunks."""
+    jax = [kernel_checks(dev, diff, f"{name} JAX-layout chunk {i}", ck)
+           for i, ck in enumerate(jax_chunks(data, [d["ck"] for d in card]))]
+    path_times(f"{name} (JAX layout)", jax, line)
+
+    def summed(ins):
+        return sum(graph_ms(lambda d=d: rt.reconstruct_pack2(
+            d["buf"], d["geom"], container_bits=d["cb"])) for d in ins)
+
+    t = [summed(ins) for ins in (card, jax, jax, card)]
+    say("times", f"{name}: reconstruct_pack2 on its {len(card)} "
+        f"decode_to_device chunks, summed a call (median of {REPS} graph "
+        f"replays each, CUDA events, in turns): card layout "
+        f"{t[0]:.4f} / {t[3]:.4f} ms ({sum(d['ck'].Ssort for d in card)} "
+        f"lanes), JAX layout {t[1]:.4f} / {t[2]:.4f} ms "
+        f"({sum(d['ck'].Ssort for d in jax)} lanes); on {line}")
+
+
 def path_memory(name: str, data: bytes, line: str) -> None:
     """The chunks decode_to_device reconstructs for a bench stream:
-    their distinct geometries, the bytes of scan buffers one call
-    uploads, and the device memory one call adds at its peak
-    (max_memory_allocated after reset_peak_memory_stats, less what was
-    allocated before), beside the PCM it keeps."""
+    each chunk's geometry, the lanes (Ssort summed over the chunks) and
+    the bytes of scan buffers one call uploads, beside what the same
+    chunks would upload in the JAX package's layout (jax_chunks), and
+    the device memory one call adds at its peak (max_memory_allocated
+    after reset_peak_memory_stats, less what was allocated before),
+    beside the PCM it keeps."""
     br = BitReader(data)
     cks = rt.stream_chunks(data, parse_metadata(br), br.pos // 8)
     uploaded = sum(ck.device_buf.nbytes for ck in cks)
+    lanes = sum(ck.Ssort for ck in cks)
+    jax = jax_chunks(data, cks)
+    itemsize = fmt.container_bits(cks[0].bits_per_sample) // 8
+    j_bytes = sum(j.device_buf.nbytes for j in jax)
+    j_lanes = sum(j.Ssort for j in jax)
+    j_pcm = sum(j.Fp * j.Bp * j.C * itemsize for j in jax)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -878,10 +953,11 @@ def path_memory(name: str, data: bytes, line: str) -> None:
                                                for ck in cks]:
         raise AssertionError(f"{name}: decode_to_device's chunk shapes "
                              "differ from its scan's geometries")
-    geoms = geoms_line([rt.Pack2Geom.of(ck) for ck in cks])
     say("slice", f"{name}: decode_to_device reconstructs {len(cks)} chunks "
-        f"in their own geometries ({geoms}); one call uploads "
-        f"{uploaded} B of scan buffers and "
+        f"in their own geometries, card layout ({geoms_line(cks)}); "
+        f"{lanes} lanes; one call uploads {uploaded} B of scan buffers "
+        f"(the JAX package's layout: {j_lanes} lanes, {j_bytes} B, PCM "
+        f"{j_pcm} B, from one more host scan) and "
         f"adds {peak} B ({peak / 2**20:.3f} MiB) of device memory at its "
         f"peak, of which it keeps {kept} B of PCM; on {line}")
 
@@ -1177,15 +1253,15 @@ def sharded_decode_check(diff: Diff, what: str, data: bytes,
     for rnd in out:
         if len({(tuple(t.shape), t.dtype) for t in rnd}) != 1:
             raise AssertionError(f"{what}: a round's PCM shapes differ")
-    geoms = [rt.Pack2Geom.of(ck) for ck in cks]
-    expect = path_launches(geoms, fmt.container_bits(bps))
+    expect = path_launches([rt.Pack2Geom.of(ck) for ck in cks],
+                           fmt.container_bits(bps))
     if got != expect:
         raise AssertionError(f"{what}: launches {got}, expected {expect} "
-                             f"({live} live chunks: {geoms_line(geoms)})")
+                             f"({live} live chunks: {geoms_line(cks)})")
     for i, ck in enumerate(cks):
         kernel_checks(mesh[i % len(mesh)], diff,
                       f"{what} sharded chunk {i}", ck)
-    return meta, got, geoms
+    return meta, got, cks
 
 
 def path_launches(geoms, cb: int) -> dict:
@@ -1203,15 +1279,18 @@ def path_launches(geoms, cb: int) -> dict:
     return dict(expect)
 
 
-def geom_line(g) -> str:
-    return (f"Fp {g.Fp}, Bp {g.Bp}, Ssort {g.Ssort}, W {g.W}, NGp {g.NGp}, "
-            f"wide {g.wide}, classes {g.classes}")
+def geom_line(ck) -> str:
+    """A pack2 chunk's frames and geometry: F, Fp, Bp, its lanes
+    (Ssort), W, NGp, wide, and each class's members n and lanes np."""
+    classes = ", ".join(f"{c} n {n} np {np_}" for c, n, np_ in ck.classes)
+    return (f"F {ck.F}, Fp {ck.Fp}, Bp {ck.Bp}, lanes (Ssort) {ck.Ssort}, "
+            f"W {ck.W}, NGp {ck.NGp}, wide {ck.wide}, classes [{classes}]")
 
 
-def geoms_line(geoms) -> str:
+def geoms_line(cks) -> str:
     """The distinct geometries of a list of chunks, each with the
     number of chunks that have it."""
-    seen = Counter(geom_line(g) for g in geoms)
+    seen = Counter(geom_line(ck) for ck in cks)
     return "; ".join(f"{n} x ({text})" for text, n in seen.items())
 
 
@@ -1221,8 +1300,7 @@ def sharded_phase(diff: Diff, benches: dict, mesh, single_ms: dict,
     where = (f"{D} cards" if len(set(mesh)) > 1
              else f"{D} slots on {mesh[0]}")
     for name, (data, want) in benches.items():
-        meta, got, geoms = sharded_decode_check(diff, name, data, want,
-                                                mesh)
+        meta, got, cks = sharded_decode_check(diff, name, data, want, mesh)
         say("sharded", f"{name}: decode_to_device_sharded over {where} -> "
             f"sharded_to_host (MD5 verified) == encoder input; "
             f"{len(meta['num_frames'])} chunks of {meta['num_frames']} "
@@ -1230,10 +1308,10 @@ def sharded_phase(diff: Diff, benches: dict, mesh, single_ms: dict,
             f"completeness count {int(meta['psum_samples'])} == channels "
             f"x block sizes; kernel launches {got} == those of the "
             f"chunks' own classes; every kernel == its plain version on "
-            f"each chunk ({geoms_line(geoms)})")
+            f"each chunk ({geoms_line(cks)})")
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
-    meta, got, geoms = sharded_decode_check(
+    meta, got, cks = sharded_decode_check(
         diff, f"bench16, chunk_frames={ROUND_FRAMES}", *benches["bench16"],
         mesh, chunk_frames=ROUND_FRAMES)
     if meta["rounds"] < 3:
@@ -1242,7 +1320,7 @@ def sharded_phase(diff: Diff, benches: dict, mesh, single_ms: dict,
     say("sharded", f"bench16 in {len(meta['num_frames'])} chunks of "
         f"{ROUND_FRAMES} frames, {meta['rounds']} rounds over {where}: "
         f"bit-exact, launches {got}; every kernel == its plain version on "
-        f"each chunk ({geoms_line(geoms)})")
+        f"each chunk ({geoms_line(cks)})")
 
     for name, (data, _) in benches.items():
         plan = build_plan(data)
@@ -1402,8 +1480,7 @@ def distributed_phase(diff: Diff, data: bytes, want: np.ndarray, tmp: str,
     shapes = shard_lpc_checks(diff, "bench16 worker", data, 2, [dev])
     say("distributed", "every kernel == its plain version on each "
         "worker's pack2 chunk in its own geometry (" + "; ".join(
-            f"worker {r}: {ck.F} frames, {geom_line(g)}"
-            for r, (ck, g) in enumerate(zip(cks, geoms)))
+            f"worker {r}: {geom_line(ck)}" for r, ck in enumerate(cks))
         + f") and lpc on their long-stream plans, rows {shapes}")
 
     for engine in ("pack2", "longstream"):
@@ -1779,10 +1856,11 @@ def main() -> None:
     # work, cached afterwards) while the kernels build.
     t_streams = time.perf_counter()
     with ProcessPoolExecutor(
-            max_workers=len(BENCH) + 1,
+            max_workers=len(BENCH) + 2,
             mp_context=multiprocessing.get_context("spawn")) as pool:
         pending = {name: pool.submit(bench_stream, name) for name in BENCH}
         pending_odd = pool.submit(bench_stream, "bench16", ODD_SAMPLES)
+        pending_track = pool.submit(bench_stream, "bench16", TRACK_SAMPLES)
         # The CUDA kernels (one nvcc per source) and the host scan
         # library build at the same time, from the checkout's sources.
         with ThreadPoolExecutor(2) as ex:
@@ -1807,11 +1885,15 @@ def main() -> None:
                    for name, fut in pending.items()}
         odd = (pending_odd.result(),
                expected_output(bench_pcm("bench16", ODD_SAMPLES), 16))
+        track = (pending_track.result(),
+                 expected_output(bench_pcm("bench16", TRACK_SAMPLES), 16))
     say("streams", ", ".join(
         f"{name} {len(data)} B ({BENCH[name][0]} x 2 samples, "
         f"{BENCH[name][1]}-bit)" for name, (data, _) in benches.items())
         + f", {ODD} {len(odd[0])} B ({ODD_SAMPLES} x 2 samples, 16-bit, "
-        f"{ODD_SAMPLES // BENCH_BLOCK} frames) and {len(corpus)} corpus "
+        f"{ODD_SAMPLES // BENCH_BLOCK} frames), {TRACK} {len(track[0])} B "
+        f"({TRACK_SAMPLES} x 2 samples, 16-bit, "
+        f"{-(-TRACK_SAMPLES // BENCH_BLOCK)} frames) and {len(corpus)} corpus "
         f"streams, {time.perf_counter() - t_streams:.1f} s")
 
     # ---- kernels against their plain versions, on the card ----
@@ -1828,8 +1910,33 @@ def main() -> None:
         path_ins[name] = [kernel_checks(dev, diff,
                                         f"{name} path chunk {i}", ck)
                           for i, ck in enumerate(cks)]
+    br = BitReader(track[0])
+    path_ins[TRACK] = [
+        kernel_checks(dev, diff, f"{TRACK} path chunk {i}", ck)
+        for i, ck in enumerate(rt.stream_chunks(
+            track[0], parse_metadata(br), br.pos // 8))]
+    # Every corpus stream as one card-layout chunk; among them chunks
+    # whose Bp is no multiple of 128 and chunks of several classes,
+    # whose class blocks start at lanes 32 and 64.
+    odd_bp, multi = [], []
     for name, (data, _) in corpus.items():
-        kernel_checks(dev, diff, name, first_chunk(data))
+        ck = kernel_checks(dev, diff, name, first_chunk(data))["ck"]
+        if ck.Bp % 128:
+            odd_bp.append(f"{name} Bp {ck.Bp}")
+        if len(ck.classes) > 1:
+            multi.append(f"{name} {geom_line(ck)}")
+    for name in CARD_BP_CASES:
+        if not any(c.startswith(f"{name} Bp ") for c in odd_bp):
+            raise AssertionError(f"{name}: its card-layout Bp is a "
+                                 "multiple of 128")
+    if not any(c.startswith(f"{MULTI_CLASS_CASE} ") for c in multi):
+        raise AssertionError(f"{MULTI_CLASS_CASE}: one class")
+    # Three classes: the LPC class's lane slice starts at lane 64.
+    three = first_chunk(three_class_stream())
+    kernel_checks(dev, diff, "three_class_stream", three)
+    if [(c, np_) for c, _, np_ in three.classes] != [
+            ("const", 32), ("fixed", 32), ("lpc8", 32)]:
+        raise AssertionError(f"three_class_stream: {geom_line(three)}")
     rows_ins = {name: rows_lpc_checks(dev, diff, f"{name} rows plan",
                                       build_plan(data))
                 for name, (data, _) in benches.items()}
@@ -1848,7 +1955,8 @@ def main() -> None:
     # The streaming kernels' synthetic inputs at the bench chunks'
     # shapes: each stream's whole-stream chunk and path chunks.
     firsts = [(d["geom"], d["cb"]) for name in BENCH
-              for d in (ins[name], *path_ins[name])]
+              for d in (ins[name], *path_ins[name])] + [
+                  (d["geom"], d["cb"]) for d in path_ins[TRACK]]
     streamed = synthetic_checks(
         dev, diff, sorted({(g.W, g.Ssort, g.NGp // g.Ssort)
                            for g, _ in firsts}),
@@ -1864,7 +1972,7 @@ def main() -> None:
             f"classes {g.classes}, LPC kernel {d['lpc_name']}; "
             f"decode_to_device reconstructs {len(path_ins[name])} "
             f"parallel-scan chunks: "
-            f"{geoms_line([p['geom'] for p in path_ins[name]])}")
+            f"{geoms_line([p['ck'] for p in path_ins[name]])}")
     for name, cls in rows_ins.items():
         say("kernels", f"{name} rows-engine plan: LPC classes " + ", ".join(
             f"{c} rows {list(a[0].shape)} {a[0].dtype}"
@@ -1873,6 +1981,13 @@ def main() -> None:
         f"{k} rows {list(a[0].shape)} {a[0].dtype}"
         for k, a in odd_ins.items()) + "; lpc and lpc64 bit-exact on "
         f"seeded classes, member count -> kernel rows: {'; '.join(padded)}")
+    say("kernels", f"{TRACK}: decode_to_device reconstructs "
+        f"{len(path_ins[TRACK])} parallel-scan chunks: "
+        f"{geoms_line([p['ck'] for p in path_ins[TRACK]])}")
+    say("kernels", f"corpus chunks in the card layout, every kernel "
+        f"bit-exact: {len(odd_bp)} with Bp no multiple of 128 "
+        f"({'; '.join(odd_bp)}); {len(multi)} of several classes "
+        f"({'; '.join(multi)}); three_class_stream: {geom_line(three)}")
     say("kernels", f"rice16, rice16_flat and packtail bit-exact on seeded "
         f"inputs: {'; '.join(streamed)} (rice16 also with win and meta, "
         f"packtail with the stack, at an odd offset)")
@@ -1939,8 +2054,11 @@ def main() -> None:
             f"({100 * bounds[name][0] / times[name][0]:.1f} % of it); on "
             f"{line}")
     extra_times(diff, hist32_inputs(dev), rows_ins, safe_ins, odd_ins, line)
-    for name in BENCH:
+    for name in (*BENCH, TRACK):
         path_times(name, path_ins[name], line)
+    for name, data in (("bench16", benches["bench16"][0]),
+                       (TRACK, track[0])):
+        layout_times(dev, diff, name, data, path_ins[name], line)
     if args.compare_csrc:
         compare_phase(args.compare_csrc, ins, path_ins, line)
 
@@ -1962,6 +2080,20 @@ def main() -> None:
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         path_memory(name, data, line)
+    _kernels.launches.clear()
+    dd = decode_check(TRACK, *track)
+    torch.cuda.synchronize()
+    got = dict(_kernels.launches)
+    expect = path_launches([d["geom"] for d in path_ins[TRACK]], 16)
+    say("slice", f"{TRACK}: decode_to_device -> to_host (MD5 verified) == "
+        f"encoder input == native decoder; chunks {len(dd.chunks)}, frames "
+        f"{dd.stats['frames']}; kernel launches {got}, those of its "
+        f"chunks' classes {expect}")
+    if got != expect:
+        raise AssertionError(f"{TRACK}: launches {got}, expected {expect}")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    path_memory(TRACK, track[0], line)
 
     # ---- the rows engine's main path, counted per bench stream and on
     # bench16_513 ----
@@ -1982,7 +2114,11 @@ def main() -> None:
     for name, (data, want) in corpus.items():
         decode_check(name, data, want)
         rows_decode_check(name, data, want)
-    say("slice", f"{len(corpus)} corpus streams bit-exact through both "
+    data3 = three_class_stream()
+    decode_check("three_class_stream", data3, native_pcm(data3))
+    say("slice", f"{len(corpus)} corpus streams and three_class_stream "
+        "bit-exact through decode_to_device; the corpus streams "
+        "through both "
         "engines (decode_to_device: to_host with MD5, interleaved_device; "
         "decode(engine=\"torch\") with MD5; native decoder)")
     rows_entry_points(benches, corpus)
@@ -2016,6 +2152,7 @@ def main() -> None:
     single_ms = {name: e2e_times(benches[name][0], BENCH[name][0] * 2,
                                  line, name)
                  for name in ("bench16", "bench24")}
+    e2e_times(track[0], TRACK_SAMPLES * 2, line, TRACK)
     for name in ("bench16", "bench24"):
         rows_times(benches[name][0], BENCH[name][0] * 2, line, name)
     rows_times(odd[0], ODD_SAMPLES * 2, line, ODD)

@@ -20,6 +20,7 @@ import zflac_tpu_torch  # noqa: E402
 from torch_slice import (  # noqa: E402
     BLOCKING_STREAMS,
     assert_same,
+    check_card_layout,
     check_rows_engine,
     check_stream,
 )
@@ -44,6 +45,11 @@ def test_rows_engine_matches_jax(name, corpus):
     check_rows_engine(name, corpus)
 
 
+@pytest.mark.parametrize("name", BLOCKING_STREAMS)
+def test_card_layout_matches_jax(name, corpus):
+    check_card_layout(name, corpus)
+
+
 @pytest.mark.parametrize("name,kw", [
     ("lpc order 8", dict(chunk_frames=2)),
     ("lpc order 8", dict(chunk_frames=2, scan_workers=2)),
@@ -61,10 +67,6 @@ def test_chunked_matches_jax(name, kw, corpus):
     if "chunk_frames" in kw:
         assert len(dd.chunks) > 1
     assert_same(dd, ref)
-
-
-def _pow2_at_least(n):
-    return 1 << max(n - 1, 0).bit_length()
 
 
 def _scan_chunks(data, **kw):
@@ -113,14 +115,14 @@ def test_parallel_ranges_keep_their_own_frame_capacity(workers,
                                                        forced_scans,
                                                        corpus):
     """Under a forced parallel split of an 8-frame stream, each chunk's
-    frame capacity is the next power of two of its own frame count,
-    not the whole stream's, and the PCM is the JAX package's."""
+    frame capacity is its own frame count (the card layout), not the
+    whole stream's, and the PCM is the JAX package's."""
     data = corpus["constant heavy"][0]
     dd = zflac_tpu_torch.decode_to_device(data, device="cpu",
                                           scan_workers=workers)
     assert len(dd.chunks) > 1 and forced_scans == []
     for pcm, F in zip(dd.chunks, dd.num_frames, strict=True):
-        assert pcm.shape[0] == _pow2_at_least(F)
+        assert pcm.shape[0] == F
     assert_same(dd, zflac_tpu.decode_to_device(data,
                                                scan_workers=workers))
 

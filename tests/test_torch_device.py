@@ -25,6 +25,7 @@ from torch_slice import (  # noqa: E402
     FORMAT_STREAMS,
     HIRES_STREAMS,
     SUBFRAME_STREAMS,
+    check_card_layout,
     check_rows_engine,
     check_stream,
 )
@@ -51,3 +52,8 @@ def test_slice_matches_jax(name, corpus):
 @pytest.mark.parametrize("name", SUBFRAME_STREAMS)
 def test_rows_engine_matches_jax(name, corpus):
     check_rows_engine(name, corpus)
+
+
+@pytest.mark.parametrize("name", SUBFRAME_STREAMS)
+def test_card_layout_matches_jax(name, corpus):
+    check_card_layout(name, corpus)

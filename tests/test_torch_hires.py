@@ -15,6 +15,7 @@ from zflac_tpu.index.native_indexer import native_available  # noqa: E402
 
 from torch_slice import (  # noqa: E402
     HIRES_STREAMS,
+    check_card_layout,
     check_rows_engine,
     check_stream,
 )
@@ -31,3 +32,8 @@ def test_slice_matches_jax(name, corpus):
 @pytest.mark.parametrize("name", HIRES_STREAMS)
 def test_rows_engine_matches_jax(name, corpus):
     check_rows_engine(name, corpus)
+
+
+@pytest.mark.parametrize("name", HIRES_STREAMS)
+def test_card_layout_matches_jax(name, corpus):
+    check_card_layout(name, corpus)

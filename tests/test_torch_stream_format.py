@@ -17,6 +17,7 @@ import zflac_tpu_torch  # noqa: E402
 from torch_slice import (  # noqa: E402
     FORMAT_STREAMS,
     assert_same,
+    check_card_layout,
     check_rows_engine,
     check_stream,
     with_total,
@@ -34,6 +35,11 @@ def test_slice_matches_jax(name, corpus):
 @pytest.mark.parametrize("name", FORMAT_STREAMS)
 def test_rows_engine_matches_jax(name, corpus):
     check_rows_engine(name, corpus)
+
+
+@pytest.mark.parametrize("name", FORMAT_STREAMS)
+def test_card_layout_matches_jax(name, corpus):
+    check_card_layout(name, corpus)
 
 
 @pytest.mark.parametrize("total,kw", [

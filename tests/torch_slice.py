@@ -92,6 +92,66 @@ def check_stream(name, corpus):
     np.testing.assert_array_equal(got.interleaved, expected_output(pcm, bps))
 
 
+def _ceil(n, m):
+    return -(-n // m) * m
+
+
+def check_card_layout(name, corpus):
+    """The whole stream as one chunk of the port's scan in the card
+    layout: Fp is the frame count, Bp the largest block rounded up to 8
+    (at least 16), each class block its member count rounded up to 32
+    at a base that is a multiple of 32, the patch table its count
+    rounded up to 32 (at least 32). Its reconstruct_pack2 on the CPU ==
+    the JAX package's reconstruct_pack2 of the JAX package's own chunk
+    (the "jax" layout) on the frames and samples both hold, [:F, :B]."""
+    import jax.numpy as jnp
+    from zflac_tpu.bitio import BitReader as JBitReader
+    from zflac_tpu.index.native_indexer import pack2_range as jpack2_range
+    from zflac_tpu.oracle import parse_metadata as jparse_metadata
+    from zflac_tpu.runtime.device import reconstruct_pack2 as jreconstruct
+
+    from zflac_tpu_torch import format as fmt
+    from zflac_tpu_torch.bitio import BitReader
+    from zflac_tpu_torch.index.native_indexer import pack2_range
+    from zflac_tpu_torch.oracle import parse_metadata
+    from zflac_tpu_torch.runtime import device as rt
+
+    data = corpus[name][0]
+    br = BitReader(data)
+    info = parse_metadata(br)
+    ck = pack2_range(data, br.pos // 8, len(data), info,
+                     max_frames=1 << 20, layout="card")
+    jbr = JBitReader(data)
+    jinfo = jparse_metadata(jbr)
+    jck = jpack2_range(data, jbr.pos // 8, len(data), jinfo,
+                       max_frames=1 << 20)
+    assert ck is not None and jck is not None
+    F, B = ck.F, ck.B
+    assert (F, B, ck.S, ck.W, ck.n_patch) == (jck.F, jck.B, jck.S, jck.W,
+                                              jck.n_patch)
+    assert ck.layout == "card" and ck.spec_key()[-1] == "card"
+    assert ck.Fp == F and ck.Bp == _ceil(max(B, 16), 8)
+    assert ck.n_patch_p == _ceil(max(ck.n_patch, 1), 32)
+    assert [(c, n) for c, n, _ in ck.classes] == [
+        (c, n) for c, n, _ in jck.classes]
+    base = 0
+    for _, n, np_ in ck.classes:
+        assert base % 32 == 0 and np_ == _ceil(n, 32)
+        base += np_
+    assert ck.Ssort == base
+
+    cb = fmt.container_bits(ck.bits_per_sample)
+    buf, geom = rt.chunk_to_torch(ck, "cpu")
+    got = rt.reconstruct_pack2(buf, geom, container_bits=cb).numpy()
+    assert got.shape == (F, ck.Bp, ck.C)
+    want = np.asarray(jreconstruct(
+        jnp.asarray(jck.device_buf), spec=jck.spec_key(), num_channels=jck.C,
+        container_bits=cb, do_decorrelate=jck.do_decorrelate,
+        use_pallas=False))
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got[:F, :B], want[:F, :B])
+
+
 # 16-bit LPC streams whose rows-engine cases also run with safe_lpc=True
 # (every LPC subframe in the int64 lpc_wide class: the lpc64 kernel).
 SAFE_LPC_STREAMS = ("lpc order 8", "lpc order 32", "lpc precision 15",

@@ -2596,8 +2596,9 @@ extern "C" {
 // most max_frames) and emit the packed device buffer (pack2_helpers.inc).
 // start_byte must be a frame boundary; *out.landed is the byte offset
 // after the last parsed frame (the next chunk's start). force_Fp /
-// force_Bp / force_W pin the padded geometry so every chunk of a stream
-// compiles to the same XLA program (0 = choose automatically).
+// force_Bp / force_W pin the padded geometry (0 = choose
+// automatically); `layout` (kLayoutJax or kLayoutCard,
+// pack2_helpers.inc) picks the padding rules of what is not forced.
 // Returns OK, or an error code with no buffer allocated.
 int zfi_pack2_range(const uint8_t* data, size_t len, uint64_t start_byte,
                     uint64_t stop_byte, int32_t max_frames,
@@ -2605,9 +2606,10 @@ int zfi_pack2_range(const uint8_t* data, size_t len, uint64_t start_byte,
                     uint32_t si_channels, int check_crc, int32_t force_Fp,
                     int32_t force_Bp, int32_t force_W,
                     const int32_t* force_class_np, int32_t force_patch_np,
-                    int32_t force_wide, Pack2* out) {
+                    int32_t force_wide, int32_t layout, Pack2* out) {
   std::memset(out, 0, sizeof(Pack2));
   out->landed = -1;
+  if (layout != kLayoutJax && layout != kLayoutCard) return E_UNIMPLEMENTED;
   if (si_bps > 32) return E_PACK2_FALLBACK;
   try {
     Pack2Range r;
@@ -2643,7 +2645,7 @@ int zfi_pack2_range(const uint8_t* data, size_t len, uint64_t start_byte,
     out->landed = (int64_t)br.byte_pos();
     out->bits_per_sample = (int32_t)si_bps;
     emit_pack2(data, len, r, force_Fp, force_Bp, force_W,
-               force_class_np, force_patch_np, force_wide, out);
+               force_class_np, force_patch_np, force_wide, layout, out);
     return err;
   } catch (const Thrown& t) {
     return t.code;

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import hashlib
 import os
 import platform
 import subprocess
@@ -161,6 +162,15 @@ class _Pack2(ctypes.Structure):
 
 # Class ids emitted by emit_pack2 (pack2_helpers.inc), in order.
 PACK2_CLASSES = ("const", "verbatim", "fixed", "lpc8", "lpc16", "lpc32")
+# pack2_range's buffer layouts, as zfi_pack2_range numbers them
+# (pack2_helpers.inc kLayoutJax, kLayoutCard). "jax" is the JAX
+# package's buffer byte for byte: Fp the next power of two of the frame
+# count, Bp a multiple of 128, class blocks and the patch table powers of
+# two of at least 128 lanes, the shapes its TPU executables are compiled
+# for. "card" pads only as the CUDA kernels need: Fp the frame count, Bp
+# a multiple of 8 (at least 16), class blocks and the patch table
+# multiples of 32 lanes.
+PACK2_LAYOUTS = {"jax": 0, "card": 1}
 
 
 class Pack2Chunk:
@@ -170,7 +180,8 @@ class Pack2Chunk:
     a device_put immediately, so there is no reason to pin the native
     copy for the chunk's lifetime)."""
 
-    def __init__(self, lib, p: _Pack2):
+    def __init__(self, lib, p: _Pack2, layout: str):
+        self.layout = layout
         self.buf = _as_array(p.buf, (int(p.total_words),), np.int32)
         self.device_words = int(p.device_words)
         self.F, self.C, self.S, self.B = p.F, p.C, p.S, p.B
@@ -223,11 +234,15 @@ class Pack2Chunk:
         return self.buf[:self.device_words]
 
     def spec_key(self):
-        """Static jit key: geometry + section layout."""
-        return (self.Fp, self.Sp, self.Bp, self.GPB, self.W, self.NGp,
-                self.n_patch_p, self.C,
-                tuple((n, np_) for n, _, np_ in self.classes),
-                tuple(sorted(self.off.items())))
+        """Static key of the buffer's shape: geometry + section offsets
+        (the JAX package's jit key, field for field, for a "jax"-layout
+        chunk), then "card" for a card-layout chunk, so that no cache
+        keyed on it mixes the two layouts."""
+        key = (self.Fp, self.Sp, self.Bp, self.GPB, self.W, self.NGp,
+               self.n_patch_p, self.C,
+               tuple((n, np_) for n, _, np_ in self.classes),
+               tuple(sorted(self.off.items())))
+        return key if self.layout == "jax" else key + (self.layout,)
 
 
 def pack2_range(data: bytes, start_byte: int, stop_byte: int,
@@ -235,13 +250,18 @@ def pack2_range(data: bytes, start_byte: int, stop_byte: int,
                 max_frames: int = 0, force_fp: int = 0,
                 force_bp: int = 0, force_w: int = 0,
                 force_class_np=None, force_patch_np: int = 0,
-                force_wide: bool = False):
+                force_wide: bool = False, layout: str = "jax"):
     """Measure-only scan of whole frames in [start_byte, stop_byte)
-    emitting the packed device buffer (pack2 fast path). Returns a
-    Pack2Chunk, or None when the fast path declines for ANY reason —
-    unsupported geometry or a mid-scan parse error (the caller falls
-    back to the general engine, which either decodes the stream or
-    raises the typed error with exact reference semantics)."""
+    emitting the packed device buffer (pack2 fast path) in `layout`
+    (PACK2_LAYOUTS; the force_* arguments pin what they name in
+    either). Returns a Pack2Chunk, or None when the fast path declines
+    for ANY reason — unsupported geometry or a mid-scan parse error
+    (the caller falls back to the general engine, which either decodes
+    the stream or raises the typed error with exact reference
+    semantics)."""
+    if layout not in PACK2_LAYOUTS:
+        raise ValueError(f"unknown pack2 layout {layout!r} (takes "
+                         f"{', '.join(PACK2_LAYOUTS)})")
     lib = _load()
     if lib is None:
         return None
@@ -257,7 +277,7 @@ def pack2_range(data: bytes, start_byte: int, stop_byte: int,
         info.sample_rate, info.bits_per_sample, info.channel_count,
         1 if check_crc else 0, force_fp, force_bp, force_w,
         cnp_ptr, force_patch_np, 1 if force_wide else 0,
-        ctypes.byref(p))
+        PACK2_LAYOUTS[layout], ctypes.byref(p))
     if rc in (100, 101):
         return None
     if rc != 0:
@@ -269,7 +289,7 @@ def pack2_range(data: bytes, start_byte: int, stop_byte: int,
         if p.buf:
             lib.zfi_pack2_free(ctypes.byref(p))
         return None
-    return Pack2Chunk(lib, p)
+    return Pack2Chunk(lib, p, layout)
 
 
 def _cpu_model() -> str:
@@ -309,14 +329,24 @@ def cxx_flags(sanitize: str) -> tuple:
 
 
 def _stamp(flags: tuple) -> str:
-    return f"g++ {' '.join(flags)}\ncpu {_cpu_model()}\n"
+    """What a library built now from the sources with `flags` is: the
+    flags, the CPU model and a digest of the sources' bytes."""
+    digest = hashlib.sha256()
+    for src in _SRCS:
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    return (f"g++ {' '.join(flags)}\ncpu {_cpu_model()}\n"
+            f"sources {digest.hexdigest()}\n")
 
 
 def _fresh(so: str, flags: tuple) -> bool:
-    """The library at `so` is newer than every source and its stamp
-    names these flags and this host's CPU."""
+    """The library at `so` exists and its stamp names these flags,
+    this host's CPU and the sources as they are now. The digest, not
+    file times, decides: a library built from other sources (another
+    entry-point signature, say) is never loaded, whatever the times a
+    copy or checkout gave the files."""
     try:
-        if os.path.getmtime(so) < max(map(os.path.getmtime, _SRCS)):
+        if not os.path.exists(so):
             return False
         with open(so + ".stamp") as f:
             return f.read() == _stamp(flags)
@@ -344,6 +374,7 @@ def build(build_dir: str = BUILD_DIR, force: bool = False,
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not force and _fresh(so, flags):
             return so
+        stamp = _stamp(flags)   # the sources as g++ is about to read them
         tmp = f"{so}.{os.getpid()}.tmp"
         cmd = ["g++", *flags, "-o", tmp, _SRCS[0]]
         proc = subprocess.run(cmd, capture_output=True, text=True,
@@ -353,7 +384,7 @@ def build(build_dir: str = BUILD_DIR, force: bool = False,
                                f"{' '.join(cmd)}\n{proc.stderr}")
         os.replace(tmp, so)
         with open(tmp, "w") as f:
-            f.write(_stamp(flags))
+            f.write(stamp)
         os.replace(tmp, so + ".stamp")
     return so
 
@@ -402,7 +433,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int32,
-        ctypes.c_int32, ctypes.POINTER(_Pack2)]
+        ctypes.c_int32, ctypes.c_int32, ctypes.POINTER(_Pack2)]
     lib.zfi_pack2_free.restype = None
     lib.zfi_pack2_free.argtypes = [ctypes.POINTER(_Pack2)]
     return lib

@@ -162,7 +162,8 @@ def range_chunks(data: bytes, info, first: int, num_local: int,
                  check_crc: bool = False, stats: dict | None = None):
     """Steps 1-3 of decode_pack2_distributed: this process's pack2
     chunks, one per local byte range, each in the geometry of its own
-    scan. Returns (the range starts, the chunks), or (the range starts,
+    scan in the card layout (native_indexer.PACK2_LAYOUTS). Returns
+    (the range starts, the chunks), or (the range starts,
     None) when some process's range declined the scan, did not land on
     its range's end or was left without a frame start; the flag is
     exchanged, so every process gets None together. Fills `stats` with
@@ -183,7 +184,8 @@ def range_chunks(data: bytes, info, first: int, num_local: int,
     ok = 1
     for a, stop in ranges:
         ck = native_indexer.pack2_range(
-            data, a, stop, info, check_crc=check_crc, max_frames=1 << 20)
+            data, a, stop, info, check_crc=check_crc, max_frames=1 << 20,
+            layout="card")
         if ck is None or ck.landed != stop:
             ok = 0
         else:

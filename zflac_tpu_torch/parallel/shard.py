@@ -15,7 +15,9 @@ the JAX module therefore have no twin: repack_common stacks the chunks
 of a round into one [D, L] array for shard_map, and make_pack2_body
 builds the one traced body. What is kept of them is the check that all
 chunks of a call share one PCM shape [Fp, Bp, C], the per-slot shape of
-the JAX function's global array; each chunk keeps its own class sets.
+the JAX function's global array (Fp the call's chunk size, Bp a
+multiple of 128); each chunk keeps its own class sets, in the card
+layout's 32-lane blocks.
 """
 
 from __future__ import annotations
@@ -28,9 +30,10 @@ from ..bitio import BitReader
 from ..index import native_indexer
 from ..oracle import parse_metadata
 from ..plan import StreamPlan
-from ..runtime.device import (_bucket_block, assemble_chunks, cut_at_total,
+from ..runtime.device import (assemble_chunks, cut_at_total,
                               estimate_total_frames, reconstruct_chunks,
-                              resolve_device, stream_chunks, upload)
+                              resolve_device, slot_block, stream_chunks,
+                              upload)
 from ..runtime.reconstruct import reconstruct_core
 from ..utils.log import get_logger
 
@@ -198,7 +201,8 @@ def decode_to_device_sharded(data: bytes, mesh, check_crc: bool = False,
                              chunk_frames: int = 0):
     """Frame-parallel device-resident decode over a list of devices
     through the pack2 path: the stream is scanned into packed chunks of
-    one frame capacity (each with its own class sets), chunk i goes to
+    one PCM slot shape, the JAX function's (each with its own class
+    sets and patch table in the card layout), chunk i goes to
     mesh[i % D] in round i // D (one
     pinned upload and one reconstruct_pack2 there), and nothing is
     waited for. No data crosses devices: frames are independent; the
@@ -220,7 +224,7 @@ def decode_to_device_sharded(data: bytes, mesh, check_crc: bool = False,
         return None
     pos = br.pos // 8
     D = len(mesh)
-    Bp = _bucket_block(max(info.max_block_size, 16))
+    Bp = slot_block(max(info.max_block_size, 16))
     if chunk_frames <= 0:
         est_frames = estimate_total_frames(data, pos, info,
                                            check_crc=check_crc)

@@ -65,7 +65,8 @@ _CONTAINER = {8: torch.int8, 16: torch.int16, 32: torch.int32}
 @dataclass(frozen=True)
 class Pack2Geom:
     """Plain-int geometry of one pack2 chunk buffer: the fields of
-    Pack2Chunk.spec_key(), with the section offsets as a dict."""
+    Pack2Chunk.spec_key() (less its layout tag, which decides no shape),
+    with the section offsets as a dict."""
     Fp: int
     Sp: int
     Bp: int
@@ -80,7 +81,7 @@ class Pack2Geom:
     @classmethod
     def of(cls, ck) -> "Pack2Geom":
         (Fp, Sp, Bp, GPB, W, NGp, n_patch_p, C, classes,
-         off_items) = ck.spec_key()
+         off_items) = ck.spec_key()[:10]
         return cls(Fp, Sp, Bp, GPB, W, NGp, n_patch_p, C, classes,
                    dict(off_items))
 
@@ -162,7 +163,9 @@ def residual_rows(buf, geom: Pack2Geom):
 
     # Patches never target the warm region (every patch position is
     # >= order), so the splice comes after them. warmlen is 1 (const)
-    # or the order (<= 32), so the splice touches the first 32 rows.
+    # or the order (<= 32 and <= the block size, so <= Bp), so the
+    # splice touches the first min(32, Bp) rows (the card layout's Bp
+    # may be 16).
     out = rice16_unpack_rows(win, meta, Ssort=Ssort)
     if geom.wide:
         # The rice16 residuals are int32-exact; warm-ups and patches
@@ -174,8 +177,9 @@ def residual_rows(buf, geom: Pack2Geom):
     _patch_rows_layout(out, pidx, pval)
     rows_t = out[:Bp]
     row = torch.arange(Bp, device=buf.device)[:, None]
-    rows_t[:32] = torch.where(row[:32] < warmlen[None, :], warm_t,
-                              rows_t[:32])
+    w = min(32, Bp)
+    rows_t[:w] = torch.where(row[:w] < warmlen[None, :], warm_t[:w],
+                             rows_t[:w])
     rows_t.masked_fill_(row >= bssub[None, :], 0)
     return rows_t
 
@@ -407,6 +411,17 @@ def verify_stream_md5(interleaved: np.ndarray, bps: int,
 
 
 def _bucket_block(b: int) -> int:
+    """Bp of a stream whose blocks hold at most b samples, in the card
+    layout (pack2_helpers.inc kLayoutCard): b rounded up to a multiple
+    of 8 (lpc2's groups of steps), at least 16."""
+    return -(-max(b, 16) // 8) * 8
+
+
+def slot_block(b: int) -> int:
+    """Bp of the JAX package's decode_to_device_sharded slots: b
+    rounded up to a multiple of 128, at least 128. Its PCM slot shape
+    [Fp, Bp, C] is the sharded call's result shape, which the port
+    keeps."""
     return max(128, -(-b // 128) * 128)
 
 
@@ -420,7 +435,8 @@ def estimate_total_frames(data: bytes, pos: int, info,
     if info.total_samples:
         return -(-info.total_samples // nominal)
     probe = native_indexer.pack2_range(data, pos, len(data), info,
-                                       check_crc=check_crc, max_frames=64)
+                                       check_crc=check_crc, max_frames=64,
+                                       layout="card")
     if probe is None or probe.F == 0:
         return None
     if probe.landed >= len(data):
@@ -455,10 +471,12 @@ def scan_pack2_chunks(data: bytes, pos: int, info, chunk_frames: int,
     start where the previous one landed); an anchor miss, a decline
     inside a range or a chain break falls back to one serial scan.
 
-    Each chunk keeps the geometry its own scan gives it: Fp is the next
-    power of two of its frame count, or `chunk_frames` for every chunk
-    with `fixed_fp` (the sharded path's one slot shape). Bp is forced
-    for all; W is chained within a range.
+    Each chunk keeps the geometry its own scan gives it in the card
+    layout (native_indexer.PACK2_LAYOUTS): Fp is its frame count, or
+    `chunk_frames` for every chunk with `fixed_fp` (the sharded path's
+    one slot shape), and its class blocks and patch table are padded to
+    multiples of 32 lanes. Bp is forced for all; W is chained within a
+    range.
 
     Returns a list of (start_byte, Pack2Chunk), or None (decline)."""
     force_fp = chunk_frames if fixed_fp else 0
@@ -471,7 +489,7 @@ def scan_pack2_chunks(data: bytes, pos: int, info, chunk_frames: int,
             ck = native_indexer.pack2_range(
                 data, p, stop, info, check_crc=check_crc,
                 max_frames=chunk_frames, force_fp=force_fp,
-                force_bp=Bp, force_w=force_w)
+                force_bp=Bp, force_w=force_w, layout="card")
             if ck is None:
                 return None
             if ck.F == 0:
@@ -583,13 +601,16 @@ def stream_chunks(data: bytes, info, pos: int, *, check_crc: bool = False,
                   fixed_fp: bool = False, stats: dict | None = None):
     """The pack2 chunks decode_to_device reconstructs for the stream
     whose frames start at byte `pos`: a parallel scan whose chunks each
-    keep their own geometry (scan_pack2_chunks; `fixed_fp` pads every
-    chunk to the chunk size). Returns a list of Pack2Chunk, or None
+    keep their own geometry (scan_pack2_chunks), all at the card
+    layout's Bp of the stream's largest block. `fixed_fp` pads every
+    chunk to one PCM slot shape instead, [chunk_frames, slot_block],
+    the sharded call's. Returns a list of Pack2Chunk, or None
     (decline). Fills `stats` with the host-clock time of the scan;
     `rescan_ms` is 0, since no chunk is scanned twice (the JAX package
     re-scans diverging chunks with their union geometry, and tools
     read the key from both)."""
-    Bp = _bucket_block(max(info.max_block_size, 16))
+    Bp = (slot_block if fixed_fp else _bucket_block)(
+        max(info.max_block_size, 16))
     t_scan = time.perf_counter()
     if chunk_frames <= 0:
         # Whole stream in one chunk up to ~64 MiB of padded rows;

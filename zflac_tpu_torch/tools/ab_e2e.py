@@ -12,7 +12,7 @@ started in one root, so it imports that checkout's zflac_tpu_torch
 for the timed code alone: the worker reaches only entry points the
 port has had since it gained its sharded decode (decode_to_device,
 decode, decode_to_device_sharded, decode_pack2_distributed,
-stream_chunks, pack2_range, build_plan, stage_plan, launch_plan,
+stream_chunks, build_plan, stage_plan, launch_plan,
 chunk_to_torch, reconstruct_pack2), so the
 parent may be any commit from then on. It times decode(engine="torch")
 on bench16_513 (bench16 cut to 513 frames) and, after each call, its
@@ -21,15 +21,18 @@ with the bytes it stages; and decode_pack2_distributed
 in a world of one over two ranges on cuda:0 on bench16 (median of 5 on
 the host clock after one warm-up), with the medians of the time spent
 in pack2_range a decode (each range's scan and any re-scan) and of its
-calls. It times, on bench16 and bench24,
-decode_to_device (synchronized, with the medians of its scan_ms and
-rescan_ms stats), decode_to_device_sharded over four slots of cuda:0
-(synchronized) and decode(engine="torch"), each the median of 5 on the
-host clock after one warm-up; it counts the bytes of the scan buffers
-decode_to_device uploads (stream_chunks' chunks) and the peak device
-memory one decode_to_device call adds (max_memory_allocated after
-reset_peak_memory_stats, less what was allocated before); and it times
-reconstruct_pack2 on the whole-stream chunk (batches of calls between
+calls. On bench16, bench24 and bench16_track (bench16's signal at a
+3 min 30 s track's length) it times decode_to_device (synchronized,
+with the medians of its scan_ms, rescan_ms and enqueue_ms stats), the
+median of 5 on the host clock after one warm-up, and counts the bytes
+of the scan buffers one call uploads (stream_chunks' chunks, in each
+tree's own layout) and the peak device memory one call adds
+(max_memory_allocated after reset_peak_memory_stats, less what was
+allocated before). On bench16 and bench24 it also times
+decode_to_device_sharded over four slots of cuda:0 (synchronized) and
+decode(engine="torch"), each the median of 5 on the host clock after
+one warm-up, and reconstruct_pack2 on the whole stream as one chunk
+(stream_chunks with one worker, in the tree's own layout; batches of calls between
 CUDA events, as utils/cudatime.cuda_ms times them), with its host part
 (one call's return after a synchronize, median of 25) and its device
 part (10 calls replayed from a CUDA graph, median of 25 replays). One
@@ -59,7 +62,6 @@ import zflac_tpu_torch
 from zflac_tpu_torch import format as fmt
 from zflac_tpu_torch.bitio import BitReader
 from zflac_tpu_torch.index import build_plan, native_indexer
-from zflac_tpu_torch.index.native_indexer import pack2_range
 from zflac_tpu_torch.oracle import parse_metadata
 from zflac_tpu_torch.parallel.distributed import decode_pack2_distributed
 from zflac_tpu_torch.parallel.shard import decode_to_device_sharded
@@ -170,6 +172,33 @@ def rows_phases(name, data):
     return res
 
 
+# decode_to_device on the card: after one warm-up, the median of 5
+# synchronized calls on the host clock and the medians of their
+# scan_ms, rescan_ms and enqueue_ms; the bytes of the scan buffers one
+# call uploads (stream_chunks' chunks, in the tree's own layout) and the
+# device memory one call adds at its peak.
+def to_device(name, data):
+    stats = []
+    res = {f"{name} decode_to_device ms": median_ms(lambda: stats.append(
+        zflac_tpu_torch.decode_to_device(
+            data, device="cuda").synchronize().stats))}
+    for key in ("scan_ms", "rescan_ms", "enqueue_ms"):
+        res[f"{name} decode_to_device {key}"] = statistics.median(
+            st[key] for st in stats[1:])
+    br = BitReader(data)
+    res[f"{name} decode_to_device upload bytes"] = sum(
+        ck.device_buf.nbytes for ck in rt.stream_chunks(
+            data, parse_metadata(br), br.pos // 8))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dd = zflac_tpu_torch.decode_to_device(data, device="cuda").synchronize()
+    res[f"{name} decode_to_device peak MiB"] = (
+        torch.cuda.max_memory_allocated() - base) / 2**20
+    del dd
+    return res
+
+
 out = {}
 for arg in sys.argv[1:]:
     name, path = arg.split("=", 1)
@@ -178,15 +207,14 @@ for arg in sys.argv[1:]:
     if name == "bench16_513":  # the rows engine's stream alone
         out.update(rows_phases(name, data))
         continue
+    out.update(to_device(name, data))
+    if name == "bench16_track":  # decode_to_device's stream alone
+        continue
     if name == "bench16":
         key = f"{name} decode_pack2_distributed 2 ranges"
         (out[f"{key} ms"], out[f"{key} pack2_range ms"],
          out[f"{key} pack2_range calls"]) = pack2_distributed(data)
-    stats = []
     calls = {
-        "decode_to_device": lambda: stats.append(
-            zflac_tpu_torch.decode_to_device(
-                data, device="cuda").synchronize().stats),
         "decode_to_device_sharded 4 slots": lambda: (
             decode_to_device_sharded(data, mesh), torch.cuda.synchronize()),
         "decode(engine=torch)": lambda: zflac_tpu_torch.decode(
@@ -194,23 +222,10 @@ for arg in sys.argv[1:]:
     }
     for label, fn in calls.items():
         out[f"{name} {label} ms"] = median_ms(fn)
-    for key in ("scan_ms", "rescan_ms"):
-        out[f"{name} decode_to_device {key}"] = statistics.median(
-            st[key] for st in stats[1:])
+    # The whole stream as one chunk, in the tree's own decode layout.
     br = BitReader(data)
-    info = parse_metadata(br)
-    out[f"{name} decode_to_device upload bytes"] = sum(
-        ck.device_buf.nbytes for ck in rt.stream_chunks(data, info,
-                                                        br.pos // 8))
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    dd = zflac_tpu_torch.decode_to_device(data, device="cuda").synchronize()
-    out[f"{name} decode_to_device peak MiB"] = (
-        torch.cuda.max_memory_allocated() - base) / 2**20
-    del dd
-    ck = pack2_range(data, br.pos // 8, len(data), info,
-                     max_frames=1 << 20)
+    ck = rt.stream_chunks(data, parse_metadata(br), br.pos // 8,
+                          chunk_frames=1 << 20, scan_workers=1)[0]
     buf, geom = rt.chunk_to_torch(ck, torch.device("cuda", 0))
     cb = fmt.container_bits(ck.bits_per_sample)
     rec = lambda: rt.reconstruct_pack2(buf, geom, container_bits=cb)
@@ -277,9 +292,10 @@ def main() -> None:
     for name in ("bench16", "bench24"):
         streams.bench_stream(name)
         files.append(f"{name}={streams.bench_path(name)}")
-    streams.bench_stream("bench16", streams.ODD_SAMPLES)
-    files.append("bench16_513="
-                 f"{streams.bench_path('bench16', streams.ODD_SAMPLES)}")
+    for label, n in (("bench16_513", streams.ODD_SAMPLES),
+                     ("bench16_track", streams.TRACK_SAMPLES)):
+        streams.bench_stream("bench16", n)
+        files.append(f"{label}={streams.bench_path('bench16', n)}")
     for side, root in sides.items():
         measure(root, files)
         print(f"{side}: warm-up process done ({root})", flush=True)

@@ -15,8 +15,8 @@ checked as the reference's decode does (BASELINE.md), are timed in A-B-A
 blocks, best of `--reps` each (BENCH_REPS, default 9; the minimum is
 the host's capability on a noisy shared machine, applied to both).
 `gpu_chip_msps` and `gpu_chip_msps_24` are reconstruct_pack2's
-throughput on bench16's and bench24's whole-stream chunk resident on
-the device, from tools/bench_kernels.py (the median of `--reps` CUDA
+throughput on bench16's and bench24's whole-stream chunk (card layout)
+resident on the device, from tools/bench_kernels.py (the median of `--reps` CUDA
 graph replays).
 
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline",

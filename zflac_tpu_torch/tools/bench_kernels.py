@@ -14,7 +14,9 @@ Rows:
             on bench24's, each on the sections reconstruct_pack2 hands
             it (the lpc8 class).
 
-Each call is timed from a CUDA graph of 20 calls replayed 25 times
+The whole-stream chunk is scanned in the card layout decode_to_device
+reconstructs (streams.first_chunk), so `h2d_bytes` is that layout's
+buffer. Each call is timed from a CUDA graph of 20 calls replayed 25 times
 (utils/cudatime.graph_ms), which leaves the host's issue time out as
 the TPU tool's on-device loop did. The streams come from
 tools/streams.py (.bench_cache/). Prints one JSON object, the card's
@@ -48,7 +50,7 @@ def sync(device) -> None:
 
 
 def resident(data: bytes, device):
-    """The stream as one pack2 chunk uploaded to `device`: (chunk,
+    """The stream as one card-layout pack2 chunk uploaded to `device`: (chunk,
     buffer, Pack2Geom, container bits, host-clock ms of the upload)."""
     ck = streams.first_chunk(data)
     sync(device)

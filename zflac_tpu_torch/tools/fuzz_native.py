@@ -95,7 +95,7 @@ def pack2_entry(data: bytes, device):
     br = BitReader(data)
     info = parse_metadata(br)
     ck = pack2_range(data, br.pos // 8, len(data), info,
-                     max_frames=1 << 14)
+                     max_frames=1 << 14, layout="card")
     if ck is None:
         return None
     buf, geom = rt.chunk_to_torch(ck, device)

@@ -5,7 +5,7 @@ tools/profile_pack2.py). Run on the machine with the card:
         [--samples N] [--reps N] [--device cuda|cpu]
 
 Each stage runs the port's public stage functions from the uploaded
-chunk up to a cut, and is timed as a whole from a CUDA graph
+whole-stream chunk (card layout, streams.first_chunk) up to a cut, and is timed as a whole from a CUDA graph
 (utils/cudatime.graph_ms), so the difference between consecutive
 stages is what the added piece costs on the device:
 

@@ -12,7 +12,10 @@ root: correlated stereo, block 4096, 44.1 kHz.
 2**14); the cache file's name carries the length, bits and stereo mode.
 bench16 at ODD_SAMPLES (513 frames, one past a power of two) is the
 rows engine's stream whose frame axis the JAX package would pad to
-1024.
+1024. bench16 at TRACK_SAMPLES (bench16_track: a 3 min 30 s track,
+2261 frames) is the stream whose decode_to_device ranges are not near
+a power of two: its 8 parallel-scan chunks hold 282-283 frames, which
+the JAX package's layout pads to 512.
 """
 
 from __future__ import annotations
@@ -38,6 +41,10 @@ BENCH = {
 # bench16's length cut to 513 frames (bench_stream("bench16",
 # ODD_SAMPLES)).
 ODD_SAMPLES = 513 * BENCH_BLOCK
+# bench16's signal at a 3 min 30 s track's length at 44.1 kHz
+# (bench_stream("bench16", TRACK_SAMPLES)): 2260 whole frames and one
+# of 4040 samples.
+TRACK_SAMPLES = 210 * 44100
 # The bench stream of each bit depth.
 BY_BPS = {16: "bench16", 24: "bench24", 32: "bench32ms"}
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -76,12 +83,25 @@ def bench_stream(name: str, samples: int = None) -> bytes:
     return data
 
 
+def three_class_stream() -> bytes:
+    """A short stream (7 frames, bench16's signal, block 1024) whose one
+    chunk holds three classes: its first two frames are silent
+    (constant subframes), the last holds 10 samples (fixed order 2:
+    too short for the encoder's LPC) and the rest are LPC. In the card
+    layout the class blocks start at lanes 0, 32 and 64, so the LPC
+    kernels read a lane slice that starts at lane 64."""
+    pcm = correlated_stereo(6 * 1024 + 10, 16, seed=7)
+    pcm[:2 * 1024] = 0
+    return encode(pcm, 44100, 16, EncoderConfig(block_size=1024))
+
+
 def first_chunk(data: bytes):
-    """The whole stream as one pack2 chunk."""
+    """The whole stream as one pack2 chunk, in the card layout that
+    decode_to_device reconstructs."""
     br = BitReader(data)
     info = parse_metadata(br)
     ck = pack2_range(data, br.pos // 8, len(data), info,
-                     max_frames=1 << 20)
+                     max_frames=1 << 20, layout="card")
     if ck is None:
         raise RuntimeError("pack2 scan declined the stream")
     return ck
