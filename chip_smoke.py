@@ -85,19 +85,24 @@ build/zflac_tpu_torch/, then:
      CUDA device as it found it, and, on a host with several cards, a
      decode on cuda:1 from a thread on cuda:0 equals the cuda:0 result;
   9. sharded: decode_to_device_sharded of each bench stream over every
-     visible card (over four slots on cuda:0 when there is one), with
-     the launch counters reset before and read after (rice16, the LPC
-     kernel and packtail must equal those of each live chunk's own
-     classes), one PCM shape in each round, sharded_to_host against
-     the encoder's input with the MD5 verified, the completeness count
+     visible card (over four slots on cuda:0 when there is one) and
+     over one slot of cuda:0, with the launch counters reset before and
+     read after (rice16, the LPC kernel and packtail must equal those
+     of each live chunk's own classes), each chunk's tensor in its own
+     card geometry [F_i, Bp, C] (the chunks re-derived from the JAX
+     chunk-size rule and the same scan), sharded_to_host against the
+     encoder's input with the MD5 verified, the completeness count
      against the block sizes, one case of three or more rounds, and
      every kernel against its plain version on each chunk of each of
-     these calls (their chunk size, each chunk with its own class
-     sets); reconstruct_sharded on each bench
+     these calls; for bench16 and bench24 on four, two and one slots
+     of cuda:0, the PCM bytes a call keeps, the device memory it adds at
+     its peak and reconstruct_pack2 summed over its chunks (CUDA
+     graphs); reconstruct_sharded on each bench
      stream's rows plan against the single-device reconstruction
      (lpc / lpc64 counted, and held against the plain version on each
-     device's slice of the plan); then the sharded decode of bench16 and
-     bench24 timed on the host clock (median of 5), in turns with
+     device's slice of the plan, in shard_plan's kernel shapes); then the
+     sharded decode of bench16 and bench24 over the mesh and over one
+     slot timed on the host clock (median of 5), in turns with
      decode_to_device on one device, beside the time of step 7;
  10. longstream: decode_longstream of bench16 and bench24 in 4 shards
      (launches counted; lpc / lpc64 against the plain version on each
@@ -198,6 +203,7 @@ from zflac_tpu_torch.parallel.longstream import (decode_longstream,
                                                  shard_index)
 from zflac_tpu_torch.parallel.shard import (decode_to_device_sharded,
                                             local_arrays, shard_plan,
+                                            sharded_chunk_frames,
                                             sharded_to_host)
 from zflac_tpu_torch.testing import make_corpus
 from zflac_tpu_torch.ops.lpc import (KERNEL as LPC_ROWS_KERNEL,
@@ -926,6 +932,18 @@ def layout_times(dev, diff: Diff, name: str, data: bytes, card: list,
         f"({sum(d['ck'].Ssort for d in jax)} lanes); on {line}")
 
 
+def peak_bytes(fn) -> tuple:
+    """fn()'s result and the device memory it adds at its peak on the
+    current card (max_memory_allocated after reset_peak_memory_stats,
+    less what was allocated before), synchronized."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_allocated() - base
+
+
 def path_memory(name: str, data: bytes, line: str) -> None:
     """The chunks decode_to_device reconstructs for a bench stream:
     each chunk's geometry, the lanes (Ssort summed over the chunks) and
@@ -943,11 +961,8 @@ def path_memory(name: str, data: bytes, line: str) -> None:
     j_bytes = sum(j.device_buf.nbytes for j in jax)
     j_lanes = sum(j.Ssort for j in jax)
     j_pcm = sum(j.Fp * j.Bp * j.C * itemsize for j in jax)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    dd = zflac_tpu_torch.decode_to_device(data, device="cuda").synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
+    dd, peak = peak_bytes(lambda: zflac_tpu_torch.decode_to_device(
+        data, device="cuda"))
     kept = sum(t.numel() * t.element_size() for t in dd.chunks)
     if [tuple(t.shape) for t in dd.chunks] != [(ck.Fp, ck.Bp, ck.C)
                                                for ck in cks]:
@@ -1210,11 +1225,13 @@ def sharded_decode_check(diff: Diff, what: str, data: bytes,
                          want: np.ndarray, mesh, **kw) -> tuple:
     """decode_to_device_sharded on the mesh with the counters reset
     before and read after: host PCM equal to the encoder's input, MD5
-    verified, completeness count equal to the block sizes, and each
-    kernel launched once per live chunk and class; then each kernel
-    against its plain version on every chunk of the call, on the
-    chunk's device. Returns (meta, the launch counts, the first chunk's
-    geometry)."""
+    verified, completeness count equal to the block sizes, each chunk's
+    tensor in its own card geometry [F_i, Bp, C] on mesh[i % D], every
+    round but the last full, and each kernel launched once per live
+    chunk and class; then each kernel against its plain version on
+    every chunk of the call, on the chunk's device. Returns (meta, the
+    launch counts, the rounds, kernel_checks' dicts of the chunks, the
+    call's chunk size)."""
     _kernels.launches.clear()
     r = decode_to_device_sharded(data, mesh, **kw)
     if r is None:
@@ -1223,10 +1240,6 @@ def sharded_decode_check(diff: Diff, what: str, data: bytes,
     sync_mesh(mesh)
     got = dict(_kernels.launches)
     bps, C = meta["bits_per_sample"], meta["channels"]
-    for rnd in out:
-        if [t.device for t in rnd] != list(mesh):
-            raise AssertionError(f"{what}: a round's tensors are not on "
-                                 "the mesh's devices in order")
     host = sharded_to_host(out, meta)
     if not np.array_equal(host, md5_domain(want, bps)):
         raise AssertionError(f"{what}: sharded_to_host differs from the "
@@ -1239,29 +1252,68 @@ def sharded_decode_check(diff: Diff, what: str, data: bytes,
         raise AssertionError(
             f"{what}: completeness count {int(meta['psum_samples'])} on "
             f"{meta['psum_samples'].device}, block sizes give {samples}")
-    # The chunks the call reconstructed: the same scan, every chunk
-    # padded to the call's chunk size, which is the frame axis of its
-    # tensors; each chunk keeps its own class sets.
+    # The chunks the call reconstructed, re-derived: the JAX chunk-size
+    # rule (or the call's own chunk_frames) and the same scan, each
+    # chunk in its own card geometry.
     br = BitReader(data)
     info = parse_metadata(br)
-    cks = rt.stream_chunks(data, info, br.pos // 8,
-                           chunk_frames=out[0][0].shape[0], fixed_fp=True)
+    pos = br.pos // 8
+    cf = kw.get("chunk_frames") or sharded_chunk_frames(data, pos, info,
+                                                        len(mesh))
+    cks = rt.stream_chunks(data, info, pos, chunk_frames=cf)
+    D = len(mesh)
     live = len(meta["num_frames"])
-    if len(cks) != live or meta["rounds"] != -(-live // len(mesh)):
+    if len(cks) != live or meta["rounds"] != -(-live // D):
         raise AssertionError(f"{what}: {live} chunks in {meta['rounds']} "
                              f"rounds, the scan gives {len(cks)}")
-    for rnd in out:
-        if len({(tuple(t.shape), t.dtype) for t in rnd}) != 1:
-            raise AssertionError(f"{what}: a round's PCM shapes differ")
+    shapes = [(tuple(t.shape), t.device) for rnd in out for t in rnd]
+    expect_shapes = [((ck.F, ck.Bp, ck.C), mesh[i % D])
+                     for i, ck in enumerate(cks)]
+    if shapes != expect_shapes or [len(rnd) for rnd in out] != [
+            min(D, live - i) for i in range(0, live, D)]:
+        raise AssertionError(f"{what}: tensors {shapes}, the chunks' own "
+                             f"geometries {expect_shapes}")
     expect = path_launches([rt.Pack2Geom.of(ck) for ck in cks],
                            fmt.container_bits(bps))
     if got != expect:
         raise AssertionError(f"{what}: launches {got}, expected {expect} "
                              f"({live} live chunks: {geoms_line(cks)})")
-    for i, ck in enumerate(cks):
-        kernel_checks(mesh[i % len(mesh)], diff,
-                      f"{what} sharded chunk {i}", ck)
-    return meta, got, cks
+    checked = [kernel_checks(mesh[i % D], diff, f"{what} sharded chunk {i}",
+                             ck) for i, ck in enumerate(cks)]
+    return meta, got, out, checked, cf
+
+
+def sharded_geometry(dev, name: str, data: bytes, mesh, where: str,
+                     line: str) -> None:
+    """One decode_to_device_sharded call of `name` on the mesh, its
+    chunks in their own card geometry: the PCM bytes it keeps, the
+    device memory it adds at its peak, and reconstruct_pack2 summed over
+    the call's chunks (CUDA graphs timed with CUDA events). One card
+    only: the memory counters are the current card's. The JAX
+    function's slot shape is measured against it by tools/ab_e2e.py
+    against the tree before the change, not here."""
+    (out, meta), peak = peak_bytes(
+        lambda: decode_to_device_sharded(data, mesh))
+    kept = sum(t.numel() * t.element_size() for rnd in out for t in rnd)
+    del out
+    br = BitReader(data)
+    info = parse_metadata(br)
+    pos = br.pos // 8
+    cf = sharded_chunk_frames(data, pos, info, len(mesh))
+    cks = rt.stream_chunks(data, info, pos, chunk_frames=cf)
+    ins = [(*rt.chunk_to_torch(ck, dev),
+            fmt.container_bits(ck.bits_per_sample)) for ck in cks]
+    t = [sum(graph_ms(lambda b=b, g=g, cb=cb: rt.reconstruct_pack2(
+        b, g, container_bits=cb)) for b, g, cb in ins) for _ in range(2)]
+    say("sharded", f"{name}: decode_to_device_sharded over {where}, "
+        f"chunk size {cf}, {len(cks)} chunks in {meta['rounds']} "
+        f"rounds: scan buffers {sum(c.device_buf.nbytes for c in cks)} B, "
+        f"PCM {kept} B in the chunks' own geometry (frames "
+        f"{[ck.F for ck in cks]}, Bp {cks[0].Bp}); device memory added at "
+        f"the peak {peak} B ({peak / 2**20:.3f} MiB); reconstruct_pack2 "
+        f"summed over the call's chunks (median of {REPS} graph replays "
+        f"each, CUDA events, two passes) {t[0]:.4f} / {t[1]:.4f} ms; on "
+        f"{line}")
 
 
 def path_launches(geoms, cb: int) -> dict:
@@ -1299,28 +1351,42 @@ def sharded_phase(diff: Diff, benches: dict, mesh, single_ms: dict,
     D = len(mesh)
     where = (f"{D} cards" if len(set(mesh)) > 1
              else f"{D} slots on {mesh[0]}")
+    one = make_mesh(["cuda:0"])
     for name, (data, want) in benches.items():
-        meta, got, cks = sharded_decode_check(diff, name, data, want, mesh)
-        say("sharded", f"{name}: decode_to_device_sharded over {where} -> "
-            f"sharded_to_host (MD5 verified) == encoder input; "
-            f"{len(meta['num_frames'])} chunks of {meta['num_frames']} "
-            f"frames in {meta['rounds']} rounds, one PCM shape a round; "
-            f"completeness count {int(meta['psum_samples'])} == channels "
-            f"x block sizes; kernel launches {got} == those of the "
-            f"chunks' own classes; every kernel == its plain version on "
-            f"each chunk ({geoms_line(cks)})")
-        for k, v in got.items():
-            launches[k] = launches.get(k, 0) + v
-    meta, got, cks = sharded_decode_check(
+        for m, w in ((mesh, where), (one, "1 slot on cuda:0")):
+            meta, got, out, checked, cf = sharded_decode_check(
+                diff, name, data, want, m)
+            say("sharded", f"{name}: decode_to_device_sharded over {w} -> "
+                f"sharded_to_host (MD5 verified) == encoder input; "
+                f"{len(meta['num_frames'])} chunks of {meta['num_frames']} "
+                f"frames (chunk size {cf}) in {meta['rounds']} rounds "
+                f"({[len(rnd) for rnd in out]} tensors), each tensor in "
+                f"its chunk's own card geometry; completeness count "
+                f"{int(meta['psum_samples'])} == channels x block sizes; "
+                f"kernel launches {got} == those of the chunks' own "
+                f"classes; every kernel == its plain version on each chunk "
+                f"({geoms_line([d['ck'] for d in checked])})")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+    meta, got, out, checked, _ = sharded_decode_check(
         diff, f"bench16, chunk_frames={ROUND_FRAMES}", *benches["bench16"],
         mesh, chunk_frames=ROUND_FRAMES)
     if meta["rounds"] < 3:
         raise AssertionError(f"chunk_frames={ROUND_FRAMES} gave "
                              f"{meta['rounds']} rounds")
-    say("sharded", f"bench16 in {len(meta['num_frames'])} chunks of "
-        f"{ROUND_FRAMES} frames, {meta['rounds']} rounds over {where}: "
-        f"bit-exact, launches {got}; every kernel == its plain version on "
-        f"each chunk ({geoms_line(cks)})")
+    say("sharded", f"bench16 in {len(meta['num_frames'])} chunks of at most "
+        f"{ROUND_FRAMES} frames, {meta['rounds']} rounds over {where} "
+        f"({[len(rnd) for rnd in out]} tensors): bit-exact, launches {got}; "
+        f"every kernel == its plain version on each chunk "
+        f"({geoms_line([d['ck'] for d in checked])})")
+    # PCM bytes, peak memory and device time in the chunks' own geometry
+    # on four, two and one slots of cuda:0.
+    dev = torch.device("cuda", 0)
+    for name in ("bench16", "bench24"):
+        for k in (4, 2, 1):
+            sharded_geometry(dev, name, benches[name][0],
+                             make_mesh(["cuda:0"] * k),
+                             f"{k} slot{'s' if k > 1 else ''} on cuda:0", line)
 
     for name, (data, _) in benches.items():
         plan = build_plan(data)
@@ -1338,7 +1404,8 @@ def sharded_phase(diff: Diff, benches: dict, mesh, single_ms: dict,
             raise AssertionError(f"reconstruct_sharded on {name}: total "
                                  f"{total}")
         # lpc / lpc64 on each device's slice as _local_reconstruct gets
-        # it: a share of the lanes, sentinel-padded class lists.
+        # it: a share of the lanes, class lists sentinel-padded to a
+        # multiple of 32, rows [S_loc, B8] (shard_plan's shapes).
         arrays, smeta = shard_plan(plan, D)
         shapes = set()
         for d, device in enumerate(mesh):
@@ -1357,30 +1424,34 @@ def sharded_phase(diff: Diff, benches: dict, mesh, single_ms: dict,
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
 
-    # Host-clock times drift over a run, so the two calls alternate.
+    # Host-clock times drift over a run, so the calls alternate.
     for name in ("bench16", "bench24"):
         data = benches[name][0]
-        walls, ones = [], []
+        walls, ones, singles = [], [], []
         for _ in range(5):
-            sync_mesh(mesh)
-            a = time.perf_counter()
-            decode_to_device_sharded(data, mesh)
-            sync_mesh(mesh)
+            for m, runs in ((mesh, walls), (one, ones)):
+                sync_mesh(m)
+                a = time.perf_counter()
+                decode_to_device_sharded(data, m)
+                sync_mesh(m)
+                runs.append((time.perf_counter() - a) * 1e3)
             b = time.perf_counter()
             zflac_tpu_torch.decode_to_device(data, device=mesh[0]
                                              ).synchronize()
-            walls.append((b - a) * 1e3)
-            ones.append((time.perf_counter() - b) * 1e3)
+            singles.append((time.perf_counter() - b) * 1e3)
         med = statistics.median(walls)
         say("times", f"{name}: decode_to_device_sharded over {where} end "
             f"to end (scan + H2D + device, synchronized): {med:.3f} ms = "
             f"{BENCH[name][0] * 2 / med / 1e3:.1f} Msamples/s, median of "
             f"5, host clock (runs {', '.join(f'{w:.3f}' for w in walls)}); "
-            f"decode_to_device on {mesh[0]}, each run just after a sharded "
-            f"one: {statistics.median(ones):.3f} ms (runs "
-            f"{', '.join(f'{w:.3f}' for w in ones)}), and earlier in this "
-            f"run: {single_ms[name]:.3f} ms; {torch.cuda.device_count()} "
-            f"card(s) on the host, {os.cpu_count()} host cores; on {line}")
+            f"over 1 slot on cuda:0 {statistics.median(ones):.3f} ms (runs "
+            f"{', '.join(f'{w:.3f}' for w in ones)}); decode_to_device on "
+            f"{mesh[0]}, each run just after those: "
+            f"{statistics.median(singles):.3f} ms (runs "
+            f"{', '.join(f'{w:.3f}' for w in singles)}), and earlier in "
+            f"this run: {single_ms[name]:.3f} ms; "
+            f"{torch.cuda.device_count()} card(s) on the host, "
+            f"{os.cpu_count()} host cores; on {line}")
 
 
 def shard_lpc_checks(diff: Diff, what: str, data: bytes, num_shards: int,

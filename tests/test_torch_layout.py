@@ -2,8 +2,9 @@
 CPU: the parallel scan's chunks are padded only as the CUDA kernels
 need (Fp the frame count, class blocks and the patch table in multiples
 of 32 lanes, Bp a multiple of 8), decode_to_device on those chunks
-equals the JAX package's, the sharded path keeps the JAX function's slot
-shape, and a scan library built from other sources is never loaded."""
+equals the JAX package's, stream_chunks' chunks (those of the sharded
+call too) keep their own frames, and a scan library built from other
+sources is never loaded."""
 
 import os
 import shutil
@@ -101,18 +102,19 @@ def test_pack2_range_layouts(corpus):
 
 @pytest.mark.parametrize("name", ["blocksize 16", "blocksize 1000",
                                   "constant heavy"])
-def test_sharded_chunks_keep_the_slot_shape(name, corpus):
-    """The sharded path's chunks keep the JAX function's slot shape
-    [chunk_frames, Bp a multiple of 128] while their class blocks and
-    patch tables take the card layout's 32 lanes."""
+def test_stream_chunks_keep_their_own_shape(name, corpus):
+    """stream_chunks in chunks of at most 2 frames, as the sharded call
+    scans them: each chunk's Fp is its own frame count and Bp the card
+    layout's (the largest block rounded up to 8, at least 16, not the
+    JAX function's multiple of 128), with 32-lane class blocks."""
     data = corpus[name][0]
     br = BitReader(data)
     info = parse_metadata(br)
-    cks = rt.stream_chunks(data, info, br.pos // 8, chunk_frames=2,
-                           fixed_fp=True)
+    cks = rt.stream_chunks(data, info, br.pos // 8, chunk_frames=2)
+    assert len(cks) > 1
     for ck in cks:
-        assert ck.layout == "card" and ck.Fp == 2
-        assert ck.Bp == max(128, -(-info.max_block_size // 128) * 128)
+        assert ck.layout == "card" and ck.Fp == ck.F and 1 <= ck.F <= 2
+        assert ck.Bp == -(-max(info.max_block_size, 16) // 8) * 8
         assert ck.Ssort == sum(_ceil32(n) for _, n, _ in ck.classes)
 
 

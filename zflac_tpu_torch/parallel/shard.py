@@ -8,16 +8,15 @@ same engine as the single-device path, and the PCM stays on its device
 for assembly.
 
 A "mesh" here is a list of torch devices. The JAX package runs one
-traced body on every device under shard_map; here the per-device body
-is a plain function called once per device, and every device's uploads
-and launches are queued before anything is waited for. Two pieces of
-the JAX module therefore have no twin: repack_common stacks the chunks
-of a round into one [D, L] array for shard_map, and make_pack2_body
-builds the one traced body. What is kept of them is the check that all
-chunks of a call share one PCM shape [Fp, Bp, C], the per-slot shape of
-the JAX function's global array (Fp the call's chunk size, Bp a
-multiple of 128); each chunk keeps its own class sets, in the card
-layout's 32-lane blocks.
+traced body on every device under shard_map, so every device holds
+one slice of one global array: all slots of a call share one shape.
+Here the per-device body is a plain function called once per device,
+and every device's uploads and launches are queued before anything is
+waited for. So nothing here needs a common shape: each pack2 chunk is
+reconstructed in its own card geometry [F_i, Bp, C], and each device's
+slice of a rows plan has the kernels' shapes (shard_plan). The JAX module's repack_common, which stacks a round's chunks
+into one [D, L] array, and make_pack2_body, the one traced body, have
+no twin.
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ from ..bitio import BitReader
 from ..index import native_indexer
 from ..oracle import parse_metadata
 from ..plan import StreamPlan
+from ..runtime.decode import CLASS_GROUP, TIME_GROUP, _round_up
 from ..runtime.device import (assemble_chunks, cut_at_total,
                               estimate_total_frames, reconstruct_chunks,
                               resolve_device, slot_block, stream_chunks,
@@ -48,9 +48,10 @@ _SHARD_CLASSES = {"idx_const": "const", "idx_verb": "verbatim",
 
 
 def _pad_pow2(n: int) -> int:
-    """The least power of two >= n: the JAX functions' shapes that the
-    sharded paths keep (shard_plan's class widths, decode_to_device_
-    sharded's chunk size), which tests hold equal to theirs."""
+    """The least power of two >= n. Used only in
+    decode_to_device_sharded's chunk-size rule, which keeps the JAX
+    function's on purpose: it keeps the chunk boundaries, and so the
+    result's meta, equal to the JAX function's."""
     p = 1
     while p < n:
         p *= 2
@@ -89,7 +90,16 @@ def _local_reconstruct(arrays: dict, *, block: int, num_channels: int,
 
 def shard_plan(plan: StreamPlan, num_devices: int):
     """Pad + split plan arrays into [n_dev, ...] leading-axis chunks with
-    uniform per-device class index lists. Returns (arrays dict, meta)."""
+    uniform per-device class index lists. Returns (arrays dict, meta).
+
+    The frames split evenly, F_loc = ceil(F / n_dev) a device, as in
+    the JAX function, whose meta this is. The shapes are what the rows
+    engine's kernels need (runtime/decode.py pad_plan), not the JAX
+    function's: rows [n_dev, S_loc, B8], B8 = B rounded up to
+    TIME_GROUP, and every class list padded to its largest device's
+    members rounded up to CLASS_GROUP (0 for a class with no member),
+    where the JAX function takes B and the next power of two. The
+    sentinel is S_loc."""
     C = plan.channels
     F = plan.num_frames
     B = max(plan.max_block, 8)
@@ -99,7 +109,8 @@ def shard_plan(plan: StreamPlan, num_devices: int):
     S_loc = F_loc * C
 
     dtype = plan.rows.dtype
-    rows = np.zeros((Sp, B), dtype=dtype)
+    width = _round_up(B, TIME_GROUP)
+    rows = np.zeros((Sp, width), dtype=dtype)
     rows[:plan.num_subframes, :plan.max_block] = plan.rows
 
     def pad1(a, n, dt=None):
@@ -133,14 +144,14 @@ def shard_plan(plan: StreamPlan, num_devices: int):
     for name, pred in class_defs.items():
         locals_ = [np.nonzero(pred(kinds_split[d], wide_split[d]))[0]
                    for d in range(num_devices)]
-        width = _pad_pow2(max((len(a) for a in locals_), default=1))
-        arr = np.full((num_devices, width), S_loc, dtype=np.int32)
+        n = _round_up(max(len(a) for a in locals_), CLASS_GROUP)
+        arr = np.full((num_devices, n), S_loc, dtype=np.int32)
         for d, a in enumerate(locals_):
             arr[d, :len(a)] = a
         class_idx[name] = arr
 
     arrays = dict(
-        rows=rows.reshape(num_devices, S_loc, B),
+        rows=rows.reshape(num_devices, S_loc, width),
         kind=kinds_split,
         order=order.reshape(num_devices, S_loc),
         wasted=wasted.reshape(num_devices, S_loc),
@@ -160,21 +171,19 @@ def shard_plan(plan: StreamPlan, num_devices: int):
 
 def local_arrays(arrays: dict, meta: dict, d: int, device) -> dict:
     """Device d's slice of shard_plan's arrays on `device` (one upload
-    an array). A class with no member on this device is left out. The
-    lpc kernels take a time axis of whole groups of 8, so the rows get
-    zero columns up to one: they change nothing before them."""
+    an array), in the shapes the kernels take. A class with no member
+    on this device is left out."""
     S_loc = meta["F_loc"] * meta["C"]
-    local = {name: a[d] for name, a in arrays.items()
-             if name not in _SHARD_CLASSES or (a[d] < S_loc).any()}
-    local["rows"] = np.pad(local["rows"], ((0, 0), (0, -meta["B"] % 8)))
-    return {name: upload(a, device) for name, a in local.items()}
+    return {name: upload(a[d], device) for name, a in arrays.items()
+            if name not in _SHARD_CLASSES or (a[d] < S_loc).any()}
 
 
 def reconstruct_sharded(plan: StreamPlan, mesh):
     """Decode-phase-2 across the mesh: slice d of shard_plan's arrays
     goes to mesh[d] and is reconstructed there; every device is queued
-    before the first is waited for. Returns host PCM [F, B, C] and the
-    total of the per-device sample counts."""
+    before the first is waited for. Returns host
+    PCM [F, B, C] and the total of the per-device sample counts (the
+    JAX function's: F_loc x B a device)."""
     mesh = make_mesh(mesh)
     arrays, meta = shard_plan(plan, len(mesh))
     container_bits = fmt.container_bits(plan.info.bits_per_sample)
@@ -197,24 +206,51 @@ def chunk_samples(buf, geom):
     return geom.sect(buf, "bssub", geom.Ssort).sum()
 
 
+def sharded_chunk_frames(data: bytes, pos: int, info, num_devices: int,
+                         check_crc: bool = False):
+    """The JAX function's chunk size for a stream whose frames start at
+    byte `pos` over `num_devices` slots: the next power of two of the
+    frame estimate over the slots, halved while a chunk in the JAX
+    slot shape ([chunk_frames, slot_block, C]) would hold 32 Mi samples
+    or more. Chunks are cut at this size so that their boundaries, and
+    with them the result's meta, equal the JAX function's; the port's
+    chunks are not padded to it. None when the frame estimate
+    declines."""
+    est_frames = estimate_total_frames(data, pos, info, check_crc=check_crc)
+    if est_frames is None:
+        return None
+    chunk_frames = _pad_pow2(max(1, -(-est_frames // num_devices)))
+    # Per-device memory cap (~64 MiB of padded rows per chunk in the
+    # JAX function): longer streams dispatch several rounds instead of
+    # one oversized chunk per device.
+    Bp = slot_block(max(info.max_block_size, 16))
+    while chunk_frames > 1 and \
+            chunk_frames * info.channel_count * Bp >= (1 << 25):
+        chunk_frames //= 2
+    return chunk_frames
+
+
 def decode_to_device_sharded(data: bytes, mesh, check_crc: bool = False,
                              chunk_frames: int = 0):
     """Frame-parallel device-resident decode over a list of devices
     through the pack2 path: the stream is scanned into packed chunks of
-    one PCM slot shape, the JAX function's (each with its own class
-    sets and patch table in the card layout), chunk i goes to
-    mesh[i % D] in round i // D (one
-    pinned upload and one reconstruct_pack2 there), and nothing is
-    waited for. No data crosses devices: frames are independent; the
-    per-chunk sample counts are summed on mesh[0] as the completeness
-    check. Unknown or wrong STREAMINFO totals are handled by the
-    probe-scan frame estimate, not trusted metadata.
+    at most `chunk_frames` frames (the JAX function's chunk size when 0,
+    sharded_chunk_frames), each in its own card geometry, and chunk i
+    goes to mesh[i % D] in round i // D (one pinned upload and one
+    reconstruct_pack2 there), and nothing is waited for. No data
+    crosses devices: frames are independent; the per-chunk sample
+    counts are summed on mesh[0] as the completeness check. Unknown or
+    wrong STREAMINFO totals are handled by the probe-scan frame
+    estimate, not trusted metadata.
 
     Returns (pcm_rounds, meta): pcm_rounds is a list of rounds, each a
-    list of D tensors [Fp, Bp, C], tensor d on mesh[d] (a slot of the
-    last round with no chunk holds zeros); meta has the JAX function's
-    keys. None when the fast path declines; a CUDA device of the mesh
-    with no card raises."""
+    list of tensors, tensor d on mesh[d]. Chunk i's tensor is [F_i, Bp,
+    C]: F_i its frames, Bp the card layout's (the stream's largest
+    block rounded up to 8, at least 16). Every round but the last holds
+    D tensors; the last holds the chunks that are left, so it may be
+    shorter. meta has the JAX function's keys and values. None when the
+    fast path declines; a CUDA device of the mesh with no card
+    raises."""
     mesh = make_mesh(mesh)
     if not native_indexer.native_available():
         return None
@@ -224,35 +260,23 @@ def decode_to_device_sharded(data: bytes, mesh, check_crc: bool = False,
         return None
     pos = br.pos // 8
     D = len(mesh)
-    Bp = slot_block(max(info.max_block_size, 16))
     if chunk_frames <= 0:
-        est_frames = estimate_total_frames(data, pos, info,
-                                           check_crc=check_crc)
-        if est_frames is None:
+        chunk_frames = sharded_chunk_frames(data, pos, info, D,
+                                            check_crc=check_crc)
+        if chunk_frames is None:
             return None
-        chunk_frames = _pad_pow2(max(1, -(-est_frames // D)))
-        # Per-device memory cap (~64 MiB of padded rows per chunk):
-        # longer streams dispatch several rounds instead of one
-        # oversized chunk per device.
-        while chunk_frames > 1 and \
-                chunk_frames * info.channel_count * Bp >= (1 << 25):
-            chunk_frames //= 2
 
     # The parallel scan, the per-chunk loop with its stream-consistency
-    # rules and the stop cut are decode_to_device's. Every chunk is
-    # padded to chunk_frames, so each round's slots share one shape.
+    # rules and the stop cut are decode_to_device's.
     cks = stream_chunks(data, info, pos, check_crc=check_crc,
-                        chunk_frames=chunk_frames, fixed_fp=True)
+                        chunk_frames=chunk_frames)
     if not cks:
         return None
-    shapes = {(ck.Fp, ck.Bp, ck.C) for ck in cks}
-    if len(shapes) > 1:
-        raise ValueError(f"pack2 chunk PCM shapes diverge: {sorted(shapes)}")
     n_rounds = -(-len(cks) // D)
     _log_shard.debug(
         "pack2 sharded: %d chunks over %d devices in %d rounds, "
         "%s frames/chunk, Bp=%d", len(cks), D, n_rounds,
-        [ck.F for ck in cks], Bp)
+        [ck.F for ck in cks], cks[0].Bp)
 
     total = torch.zeros((), dtype=torch.int64, device=mesh[0])
 
@@ -260,9 +284,6 @@ def decode_to_device_sharded(data: bytes, mesh, check_crc: bool = False,
         total.add_(chunk_samples(buf, geom).to(mesh[0], non_blocking=True))
 
     pcms = reconstruct_chunks(cks, mesh, each=count)
-    # The last round's free slots hold zeros.
-    pcms += [torch.zeros_like(pcms[0], device=mesh[d])
-             for d in range(len(cks) % D or D, D)]
 
     num_frames = [ck.F for ck in cks]
     block_sizes = [ck.f_block_size for ck in cks]
@@ -283,9 +304,11 @@ def decode_to_device_sharded(data: bytes, mesh, check_crc: bool = False,
 def sharded_to_host(pcm, meta):
     """Assemble a sharded pack2 result into interleaved host PCM
     (pre-normalization domain), honoring per-frame block sizes. `pcm`
-    is the list of rounds, each a list of D tensors [Fp, Bp, C] (one
+    is the list of rounds, each a list of tensors [F_i, Bp, C] (one
     such list is accepted as one round); chunk i lives at round i // D,
-    slot i % D."""
+    slot i % D, with D the first round's length: every round but the
+    last is full, and when the first is the only one, i // D is 0 for
+    every chunk it holds."""
     rounds = [pcm] if pcm and isinstance(pcm[0], torch.Tensor) else pcm
 
     def host(i, F):

@@ -35,10 +35,15 @@ from ..index import build_plan, native_indexer
 from ..oracle import parse_metadata
 from ..plan import StreamPlan
 from ..result import DecodedFLAC, container_dtype
+from ..utils.log import get_logger
 from .device import (estimate_total_frames, resolve_device, upload,
                      verify_stream_md5)
 from .pack import Packer
 from .reconstruct import reconstruct, reconstruct_packed
+
+_log_stream = get_logger("stream")
+_log_frame = get_logger("frame")
+_log_kernel = get_logger("kernel")
 
 ENGINES = ("torch", "native")
 _PLAN_ARRAYS = ("rows", "kind", "order", "wasted", "shift", "coeffs",
@@ -302,6 +307,10 @@ def _decode_native(data: bytes, check_crc: bool,
     arr, meta = native_indexer.decode_native_parallel(
         data, check_crc=check_crc, compute_md5=verify_md5)
     si_bps = meta["si_bits_per_sample"]
+    _log_stream.debug(
+        "decode: %d bytes -> %d frames, engine=native (per-frame trace:"
+        " ZFLAC_TPU_LOG reaches the C++ engine too)", len(data),
+        meta["frames"])
     if verify_md5:
         if meta["computed_md5"] is not None:
             if meta["computed_md5"] != meta["md5"]:
@@ -352,6 +361,17 @@ def decode(data: bytes, check_crc: bool = False, verify_md5: bool = True,
                       prefer_native=prefer_native)
     if safe_lpc and plan.rows.dtype == np.int32:
         plan.wide = (plan.kind == 3)
+    if _log_stream.isEnabledFor(10):
+        _log_stream.debug(
+            "decode: %d bytes sr=%d ch=%d bps=%d frames=%d subframes=%d",
+            len(data), plan.info.sample_rate, plan.info.channel_count,
+            plan.info.bits_per_sample, plan.num_frames,
+            plan.num_subframes)
+    if _log_frame.isEnabledFor(10) and plan.num_frames:
+        for f in range(plan.num_frames):
+            _log_frame.debug("frame %d @%d bs=%d ch_code=%d", f,
+                             plan.frame_byte_offset[f],
+                             plan.block_size[f], plan.channel_code[f])
     if plan.num_frames == 0:
         interleaved = np.zeros(0, dtype=container_dtype(
             plan.info.bits_per_sample))
@@ -361,6 +381,9 @@ def decode(data: bytes, check_crc: bool = False, verify_md5: bool = True,
         with maybe_trace("zflac_tpu_torch.decode", device):
             interleaved = _assemble(plan, _run_reconstruct(plan, device))
         path = "rows"
+        _log_kernel.debug("reconstruct path=%s classes=%s", path,
+                          {k: len(v) for k, v in plan.classes().items()
+                           if len(v)})
     interleaved = _finish(interleaved, plan.info.bits_per_sample,
                           plan.info.md5, verify_md5)
     stats = dict(plan.stats)

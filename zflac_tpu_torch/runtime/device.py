@@ -419,9 +419,10 @@ def _bucket_block(b: int) -> int:
 
 def slot_block(b: int) -> int:
     """Bp of the JAX package's decode_to_device_sharded slots: b
-    rounded up to a multiple of 128, at least 128. Its PCM slot shape
-    [Fp, Bp, C] is the sharded call's result shape, which the port
-    keeps."""
+    rounded up to a multiple of 128, at least 128. The port's sharded
+    call uses it only in the JAX chunk-size rule (parallel/shard.py
+    sharded_chunk_frames), whose memory cap is reckoned in that slot
+    shape; its chunks keep the card layout's Bp."""
     return max(128, -(-b // 128) * 128)
 
 
@@ -462,8 +463,7 @@ def class_caps(cks):
 
 
 def scan_pack2_chunks(data: bytes, pos: int, info, chunk_frames: int,
-                      Bp: int, check_crc: bool, workers: int = 0, *,
-                      fixed_fp: bool = False):
+                      Bp: int, check_crc: bool, workers: int = 0):
     """Scan the stream into pack2 chunks of at most `chunk_frames`
     frames, in parallel across byte ranges split at sync-scan anchors
     (CRC-validated frame starts); the ctypes scan releases the GIL, so
@@ -472,14 +472,11 @@ def scan_pack2_chunks(data: bytes, pos: int, info, chunk_frames: int,
     inside a range or a chain break falls back to one serial scan.
 
     Each chunk keeps the geometry its own scan gives it in the card
-    layout (native_indexer.PACK2_LAYOUTS): Fp is its frame count, or
-    `chunk_frames` for every chunk with `fixed_fp` (the sharded path's
-    one slot shape), and its class blocks and patch table are padded to
-    multiples of 32 lanes. Bp is forced for all; W is chained within a
-    range.
+    layout (native_indexer.PACK2_LAYOUTS): Fp is its frame count, and
+    its class blocks and patch table are padded to multiples of 32
+    lanes. Bp is forced for all; W is chained within a range.
 
     Returns a list of (start_byte, Pack2Chunk), or None (decline)."""
-    force_fp = chunk_frames if fixed_fp else 0
 
     def seq(a, stop):
         out = []
@@ -488,8 +485,8 @@ def scan_pack2_chunks(data: bytes, pos: int, info, chunk_frames: int,
         while p < stop:
             ck = native_indexer.pack2_range(
                 data, p, stop, info, check_crc=check_crc,
-                max_frames=chunk_frames, force_fp=force_fp,
-                force_bp=Bp, force_w=force_w, layout="card")
+                max_frames=chunk_frames, force_bp=Bp, force_w=force_w,
+                layout="card")
             if ck is None:
                 return None
             if ck.F == 0:
@@ -598,19 +595,16 @@ def reconstruct_chunks(cks, devices, each=None) -> list:
 
 def stream_chunks(data: bytes, info, pos: int, *, check_crc: bool = False,
                   chunk_frames: int = 0, scan_workers: int = 0,
-                  fixed_fp: bool = False, stats: dict | None = None):
+                  stats: dict | None = None):
     """The pack2 chunks decode_to_device reconstructs for the stream
     whose frames start at byte `pos`: a parallel scan whose chunks each
     keep their own geometry (scan_pack2_chunks), all at the card
-    layout's Bp of the stream's largest block. `fixed_fp` pads every
-    chunk to one PCM slot shape instead, [chunk_frames, slot_block],
-    the sharded call's. Returns a list of Pack2Chunk, or None
-    (decline). Fills `stats` with the host-clock time of the scan;
-    `rescan_ms` is 0, since no chunk is scanned twice (the JAX package
-    re-scans diverging chunks with their union geometry, and tools
-    read the key from both)."""
-    Bp = (slot_block if fixed_fp else _bucket_block)(
-        max(info.max_block_size, 16))
+    layout's Bp of the stream's largest block. Returns a list of
+    Pack2Chunk, or None (decline). Fills `stats` with the host-clock
+    time of the scan; `rescan_ms` is 0, since no chunk is scanned twice
+    (the JAX package re-scans diverging chunks with their union
+    geometry, and tools read the key from both)."""
+    Bp = _bucket_block(max(info.max_block_size, 16))
     t_scan = time.perf_counter()
     if chunk_frames <= 0:
         # Whole stream in one chunk up to ~64 MiB of padded rows;
@@ -625,8 +619,7 @@ def stream_chunks(data: bytes, info, pos: int, *, check_crc: bool = False,
             chunk_frames *= 2
 
     chunks = scan_pack2_chunks(data, pos, info, chunk_frames, Bp,
-                               check_crc, workers=scan_workers,
-                               fixed_fp=fixed_fp)
+                               check_crc, workers=scan_workers)
     if not chunks:
         return None
     if stats is not None:

@@ -29,13 +29,19 @@ of the scan buffers one call uploads (stream_chunks' chunks, in each
 tree's own layout) and the peak device memory one call adds
 (max_memory_allocated after reset_peak_memory_stats, less what was
 allocated before). On bench16 and bench24 it also times
-decode_to_device_sharded over four slots of cuda:0 (synchronized) and
-decode(engine="torch"), each the median of 5 on the host clock after
-one warm-up, and reconstruct_pack2 on the whole stream as one chunk
-(stream_chunks with one worker, in the tree's own layout; batches of calls between
-CUDA events, as utils/cudatime.cuda_ms times them), with its host part
-(one call's return after a synchronize, median of 25) and its device
-part (10 calls replayed from a CUDA graph, median of 25 replays). One
+decode_to_device_sharded over four slots and over one slot of cuda:0
+(synchronized) and decode(engine="torch"), each the median of 5 on the
+host clock after one warm-up; for one sharded call over four, two and
+one slots, in the tree's own chunk shapes, the peak device memory it
+adds, the PCM bytes it returns, the scan-buffer bytes it uploads and
+reconstruct_pack2 summed over its chunks (every chunk the call passed
+to reconstruct_pack2, replayed from one CUDA graph, median of 25
+replays); and reconstruct_pack2 on the whole stream as one chunk
+(stream_chunks with one worker, in the tree's own layout; batches of
+calls between CUDA events, as utils/cudatime.cuda_ms times them), with
+its host part (one call's return after a synchronize, median of 25)
+and its device part (10 calls replayed from a CUDA graph, median of 25
+replays). One
 process on each side first builds that side's libraries and is not
 counted; then the pairs run, each side first in every other pair. It
 prints each process's times, and for each metric both sides' medians
@@ -69,6 +75,42 @@ from zflac_tpu_torch.runtime import decode as rd
 from zflac_tpu_torch.runtime import device as rt
 
 mesh = [torch.device("cuda", 0)] * 4
+
+
+# The device memory fn() adds at its peak, in MiB.
+def peak_mib(fn):
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = fn()
+    torch.cuda.synchronize()
+    del res
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+# fn's device time: `calls` calls of it captured in one CUDA graph (after
+# one warm-up call on a side stream), the median of 25 replays timed
+# with CUDA events, over `calls`, in ms.
+def graph_ms(fn, calls):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    times = []
+    for _ in range(25):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
 
 def cuda_ms(fn, reps=25):
     for _ in range(3):
@@ -189,13 +231,39 @@ def to_device(name, data):
     res[f"{name} decode_to_device upload bytes"] = sum(
         ck.device_buf.nbytes for ck in rt.stream_chunks(
             data, parse_metadata(br), br.pos // 8))
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    dd = zflac_tpu_torch.decode_to_device(data, device="cuda").synchronize()
-    res[f"{name} decode_to_device peak MiB"] = (
-        torch.cuda.max_memory_allocated() - base) / 2**20
-    del dd
+    res[f"{name} decode_to_device peak MiB"] = peak_mib(
+        lambda: zflac_tpu_torch.decode_to_device(data, device="cuda"))
+    return res
+
+
+# One decode_to_device_sharded call over `slots` slots of cuda:0, in
+# the tree's own chunk shapes: the device memory it adds at its peak,
+# the PCM bytes it returns, the scan-buffer bytes it uploads, and
+# reconstruct_pack2 on every chunk it reconstructed (the calls it made
+# through rt.reconstruct_pack2, recorded), all replayed from one CUDA
+# graph.
+def sharded_call(name, data, slots):
+    key = f"{name} decode_to_device_sharded {slots} slot" + (
+        "s" if slots > 1 else "")
+    res = {f"{key} peak MiB": peak_mib(
+        lambda: decode_to_device_sharded(data, mesh[:slots]))}
+    real, seen = rt.reconstruct_pack2, []
+
+    def recorded(buf, geom, **kw):
+        seen.append((buf, geom, kw))
+        return real(buf, geom, **kw)
+
+    rt.reconstruct_pack2 = recorded
+    try:
+        rounds, _ = decode_to_device_sharded(data, mesh[:slots])
+    finally:
+        rt.reconstruct_pack2 = real
+    res[f"{key} PCM bytes"] = sum(t.numel() * t.element_size()
+                                  for rnd in rounds for t in rnd)
+    res[f"{key} upload bytes"] = sum(b.numel() * b.element_size()
+                                     for b, _, _ in seen)
+    res[f"{key} reconstruct_pack2 summed device ms"] = graph_ms(
+        lambda: [real(b, g, **kw) for b, g, kw in seen], 1)
     return res
 
 
@@ -217,11 +285,16 @@ for arg in sys.argv[1:]:
     calls = {
         "decode_to_device_sharded 4 slots": lambda: (
             decode_to_device_sharded(data, mesh), torch.cuda.synchronize()),
+        "decode_to_device_sharded 1 slot": lambda: (
+            decode_to_device_sharded(data, mesh[:1]),
+            torch.cuda.synchronize()),
         "decode(engine=torch)": lambda: zflac_tpu_torch.decode(
             data, engine="torch", device="cuda"),
     }
     for label, fn in calls.items():
         out[f"{name} {label} ms"] = median_ms(fn)
+    for slots in (4, 2, 1):
+        out.update(sharded_call(name, data, slots))
     # The whole stream as one chunk, in the tree's own decode layout.
     br = BitReader(data)
     ck = rt.stream_chunks(data, parse_metadata(br), br.pos // 8,
@@ -239,25 +312,7 @@ for arg in sys.argv[1:]:
         issue.append((time.perf_counter() - a) * 1e3)
     out[f"{name} reconstruct_pack2 issue ms"] = statistics.median(issue)
     # The device's part: 10 calls replayed from a CUDA graph.
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        rec()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(10):
-            rec()
-    times = []
-    for _ in range(25):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / 10)
-    out[f"{name} reconstruct_pack2 device ms"] = statistics.median(times)
+    out[f"{name} reconstruct_pack2 device ms"] = graph_ms(rec, 10)
 print(json.dumps(out))
 """
 
