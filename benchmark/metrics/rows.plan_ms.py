@@ -1,0 +1,9 @@
+"""rows.plan_ms: the rows engine's plan build (runtime/decode.py `build_plan`, the index layer),
+mean ms a call of the traced window, from a span the benchmark wraps
+around the module attribute in the traced run only."""
+
+
+def read(run):
+    n = sum(c.in_window for c in run.calls)
+    s = run.spans.get("rows.plan")
+    return 1e3 * s / n if s is not None and n else None
