@@ -30,6 +30,7 @@ from zflac_tpu_torch.index import native_indexer  # noqa: E402
 from zflac_tpu_torch.oracle import parse_metadata  # noqa: E402
 from zflac_tpu_torch.runtime import device as rt  # noqa: E402
 from zflac_tpu_torch.testing import correlated_stereo  # noqa: E402
+from zflac_tpu_torch.utils.timer import recording  # noqa: E402
 
 pytestmark = pytest.mark.skipif(
     not native_available(), reason="native indexer unavailable")
@@ -148,10 +149,10 @@ def test_natural_chunks_upload_no_more_than_the_union():
     assert all(u.landed == ck.landed for u, ck in zip(union, cks))
     natural = sum(ck.device_buf.nbytes for ck in cks)
     assert natural < sum(u.device_buf.nbytes for u in union)
-    stats = {}
-    got = _scan_chunks(data, scan_workers=4, stats=stats)
+    with recording() as rec:
+        got = _scan_chunks(data, scan_workers=4)
     assert sum(ck.device_buf.nbytes for ck in got) == natural
-    assert stats["rescan_ms"] == 0
+    assert rec.stats["rescan_ms"] == 0
 
 
 def test_mid_side_chunks_of_both_widths():

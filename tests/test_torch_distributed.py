@@ -268,7 +268,8 @@ def test_world_of_one(monkeypatch):
     """Outside any process group the functions run as a world of one
     (as the JAX functions do in a single process), on local CPU
     devices. The pack2 path scans each range once, with no forced
-    geometry, and reports its scan time and a re-scan time of 0."""
+    geometry, and reports its scan time, the scan's parse and emit
+    times and a re-scan time of 0."""
     from zflac_tpu_torch.index import native_indexer
 
     pcm = correlated_stereo(60000, 16, seed=12)
@@ -288,6 +289,8 @@ def test_world_of_one(monkeypatch):
     assert not [k for kw in calls for k in kw if k.startswith("force_")]
     stats = dict(r.stats)
     assert stats.pop("scan_ms") > 0 and stats.pop("rescan_ms") == 0
+    parse, emit = stats.pop("scan_parse_ms"), stats.pop("scan_emit_ms")
+    assert parse > 0 and emit > 0
     assert stats == {"shards": 3, "processes": 1, "frames": frames,
                      "engine": "pack2-distributed"}
     np.testing.assert_array_equal(r.interleaved, ref)

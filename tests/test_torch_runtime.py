@@ -615,8 +615,9 @@ def test_maybe_trace_is_a_noop_when_unset(monkeypatch, tmp_path):
 def test_maybe_trace_writes_a_trace_per_decode(monkeypatch, tmp_path,
                                                corpus):
     """With the profile directory set, each decode() leaves one Chrome
-    trace file there that holds the region's label; the PCM is what it
-    is without tracing."""
+    trace file there that holds the call's label and, inside it, the
+    program's spans from the plan build to the finish; the PCM is what
+    it is without tracing."""
     import json
 
     from zflac_tpu_torch.utils import profiler
@@ -633,8 +634,30 @@ def test_maybe_trace_writes_a_trace_per_decode(monkeypatch, tmp_path,
         assert name.startswith("zflac_tpu_torch.decode.")
         with open(out / name) as f:
             trace = json.load(f)
-        assert any(e.get("name") == "zflac_tpu_torch.decode"
-                   for e in trace["traceEvents"])
+        names = {e.get("name") for e in trace["traceEvents"]}
+        assert {"zflac_tpu_torch.decode", "zflac.plan", "zflac.plan.index",
+                "zflac.reconstruct", "zflac.finish.md5"} <= names
+
+
+def test_maybe_trace_writes_a_trace_per_decode_to_device(monkeypatch,
+                                                         tmp_path, corpus):
+    """The same for decode_to_device(): one trace a call, holding the
+    scan and the enqueue."""
+    import json
+
+    from zflac_tpu_torch.utils import profiler
+
+    data = corpus["lpc order 8"][0]
+    out = tmp_path / "traces"
+    monkeypatch.setattr(profiler, "_PROFILE_DIR", str(out))
+    zflac_tpu_torch.decode_to_device(data, device="cpu")
+    (name,) = os.listdir(out)
+    assert name.startswith("zflac_tpu_torch.decode_to_device.")
+    with open(out / name) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"zflac_tpu_torch.decode_to_device", "zflac.scan",
+            "zflac.scan.serial", "zflac.enqueue",
+            "zflac.enqueue.upload"} <= names
 
 
 def test_stage_timers_sum_repeated_stages():

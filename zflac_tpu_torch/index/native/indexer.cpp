@@ -50,6 +50,9 @@ using ProfClock = std::chrono::steady_clock;
 static double prof_ms(ProfClock::time_point a, ProfClock::time_point b) {
   return std::chrono::duration<double, std::milli>(b - a).count();
 }
+static int64_t elapsed_ns(ProfClock::time_point a, ProfClock::time_point b) {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(b - a).count();
+}
 
 // ---- error codes (must match native_indexer.py ERROR_MAP) ----
 enum ErrCode : int {
@@ -2599,6 +2602,8 @@ extern "C" {
 // force_Bp / force_W pin the padded geometry (0 = choose
 // automatically); `layout` (kLayoutJax or kLayoutCard,
 // pack2_helpers.inc) picks the padding rules of what is not forced.
+// out->parse_ns and out->emit_ns hold the two phases' steady-clock
+// times (parse_ns also on a decline).
 // Returns OK, or an error code with no buffer allocated.
 int zfi_pack2_range(const uint8_t* data, size_t len, uint64_t start_byte,
                     uint64_t stop_byte, int32_t max_frames,
@@ -2612,6 +2617,7 @@ int zfi_pack2_range(const uint8_t* data, size_t len, uint64_t start_byte,
   if (layout != kLayoutJax && layout != kLayoutCard) return E_UNIMPLEMENTED;
   if (si_bps > 32) return E_PACK2_FALLBACK;
   try {
+    const ProfClock::time_point t_parse = ProfClock::now();
     Pack2Range r;
     BitReader br{data, len, start_byte * 8};
     int err = OK;
@@ -2641,11 +2647,14 @@ int zfi_pack2_range(const uint8_t* data, size_t len, uint64_t start_byte,
         break;
       }
     }
+    const ProfClock::time_point t_emit = ProfClock::now();
+    out->parse_ns = elapsed_ns(t_parse, t_emit);
     if (err == E_PACK2_FALLBACK) return err;  // decline: no buffer
     out->landed = (int64_t)br.byte_pos();
     out->bits_per_sample = (int32_t)si_bps;
     emit_pack2(data, len, r, force_Fp, force_Bp, force_W,
                force_class_np, force_patch_np, force_wide, layout, out);
+    out->emit_ns = elapsed_ns(t_emit, ProfClock::now());
     return err;
   } catch (const Thrown& t) {
     return t.code;

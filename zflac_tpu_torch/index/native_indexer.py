@@ -21,6 +21,7 @@ import numpy as np
 from .. import errors as err
 from ..format import StreamInfo
 from ..plan import StreamPlan
+from ..utils.timer import count, span
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "native")
@@ -157,6 +158,7 @@ class _Pack2(ctypes.Structure):
         ("off_seeds_hi", ctypes.c_int64),
         ("off_pval_hi", ctypes.c_int64),
         ("wide", ctypes.c_int32), ("_pad1", ctypes.c_int32),
+        ("parse_ns", ctypes.c_int64), ("emit_ns", ctypes.c_int64),
     ]
 
 
@@ -258,7 +260,9 @@ def pack2_range(data: bytes, start_byte: int, stop_byte: int,
     for ANY reason — unsupported geometry or a mid-scan parse error
     (the caller falls back to the general engine, which either decodes
     the stream or raises the typed error with exact reference
-    semantics)."""
+    semantics). Adds its two phases' steady-clock times, the frame
+    parse and the buffer emit, to the open call's `scan_parse_ms` and
+    `scan_emit_ms` (utils/timer.py)."""
     if layout not in PACK2_LAYOUTS:
         raise ValueError(f"unknown pack2 layout {layout!r} (takes "
                          f"{', '.join(PACK2_LAYOUTS)})")
@@ -278,6 +282,8 @@ def pack2_range(data: bytes, start_byte: int, stop_byte: int,
         1 if check_crc else 0, force_fp, force_bp, force_w,
         cnp_ptr, force_patch_np, 1 if force_wide else 0,
         PACK2_LAYOUTS[layout], ctypes.byref(p))
+    count("scan_parse_ms", p.parse_ns / 1e6)
+    count("scan_emit_ms", p.emit_ns / 1e6)
     if rc in (100, 101):
         return None
     if rc != 0:
@@ -470,19 +476,23 @@ def _as_array(ptr, shape, dtype):
 def build_plan_native(data: bytes, check_crc: bool = False,
                       emit_groups: bool = False) -> StreamPlan:
     """emit_groups: also record the Rice-group offset table, which
-    ops/rice.py `rows_from_groups` decodes."""
+    ops/rice.py `rows_from_groups` decodes. Records the C++ index's
+    `plan_index_ms` and the copy of its arrays into the StreamPlan,
+    `plan_convert_ms`, in the open call (utils/timer.py)."""
     lib = _load()
     assert lib is not None
     plan = _Plan()
     err_pos = ctypes.c_int64(0)
-    rc = lib.zfi_index_ex(data, len(data), int(check_crc),
-                          int(emit_groups), ctypes.byref(plan),
-                          ctypes.byref(err_pos))
+    with span("plan.index"):
+        rc = lib.zfi_index_ex(data, len(data), int(check_crc),
+                              int(emit_groups), ctypes.byref(plan),
+                              ctypes.byref(err_pos))
     if rc != 0:
         msg = "frame CRC mismatch" if rc == 9 else ""
         raise ERROR_MAP.get(rc, err.Unimplemented)(msg)
     try:
-        return _plan_to_streamplan(plan, _stream_info(plan))
+        with span("plan.convert"):
+            return _plan_to_streamplan(plan, _stream_info(plan))
     finally:
         lib.zfi_free(ctypes.byref(plan))
 

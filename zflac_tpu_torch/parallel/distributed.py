@@ -39,7 +39,6 @@ Run one process standalone:
 from __future__ import annotations
 
 import datetime
-import time
 
 import numpy as np
 import torch
@@ -55,6 +54,7 @@ from ..runtime.decode import _assemble, _finish, _run_reconstruct
 from ..runtime.device import (apply_stop_cut, chunk_parts,
                               reconstruct_chunks, resolve_device)
 from ..utils.log import get_logger
+from ..utils.timer import count, recording, span
 from .longstream import boundary_exchange, range_starts
 from .shard import chunk_samples, make_mesh
 
@@ -159,44 +159,43 @@ def decode_longstream_distributed(data: bytes, check_crc: bool = False,
 
 
 def range_chunks(data: bytes, info, first: int, num_local: int,
-                 check_crc: bool = False, stats: dict | None = None):
+                 check_crc: bool = False):
     """Steps 1-3 of decode_pack2_distributed: this process's pack2
     chunks, one per local byte range, each in the geometry of its own
     scan in the card layout (native_indexer.PACK2_LAYOUTS). Returns
     (the range starts, the chunks), or (the range starts,
     None) when some process's range declined the scan, did not land on
     its range's end or was left without a frame start; the flag is
-    exchanged, so every process gets None together. Fills `stats` with
-    the host-clock time of the anchor table and the scans (`scan_ms`)
-    and `rescan_ms` 0.0: no range is scanned twice."""
-    t_scan = time.perf_counter()
+    exchanged, so every process gets None together. Records in the open
+    call (utils/timer.py) the host-clock time of the anchor table and
+    the scans (`scan_ms`) and `rescan_ms` 0.0: no range is scanned
+    twice."""
     p, Pn = _world()
     L = num_local
 
-    # 1. anchor table over P*L ranges (identical in every process).
-    starts = range_starts(data, first, info, Pn * L)
-    ranges = [(starts[d], starts[d + 1] if d + 1 < len(starts)
-               else len(data))
-              for d in range(p * L, (p + 1) * L) if d < len(starts)]
+    with span("scan"):
+        # 1. anchor table over P*L ranges (identical in every process).
+        starts = range_starts(data, first, info, Pn * L)
+        ranges = [(starts[d], starts[d + 1] if d + 1 < len(starts)
+                   else len(data))
+                  for d in range(p * L, (p + 1) * L) if d < len(starts)]
 
-    # 2. one natural-geometry scan of each local range.
-    cks = []
-    ok = 1
-    for a, stop in ranges:
-        ck = native_indexer.pack2_range(
-            data, a, stop, info, check_crc=check_crc, max_frames=1 << 20,
-            layout="card")
-        if ck is None or ck.landed != stop:
-            ok = 0
-        else:
-            cks.append(ck)
+        # 2. one natural-geometry scan of each local range.
+        cks = []
+        ok = 1
+        for a, stop in ranges:
+            ck = native_indexer.pack2_range(
+                data, a, stop, info, check_crc=check_crc,
+                max_frames=1 << 20, layout="card")
+            if ck is None or ck.landed != stop:
+                ok = 0
+            else:
+                cks.append(ck)
     if not cks:
         # A process with zero anchor ranges has no chunk: everyone falls
         # back to the longstream path, which handles empty shards.
         ok = 0
-    if stats is not None:
-        stats.update(scan_ms=(time.perf_counter() - t_scan) * 1e3,
-                     rescan_ms=0.0)
+    count("rescan_ms", 0.0)
 
     # 3. only the flag crosses: each process reconstructs and flattens
     # its own chunks, so no buffer layout has to agree across processes.
@@ -227,9 +226,10 @@ def decode_pack2_distributed(data: bytes, check_crc: bool = False,
       5. per-process PCM and block-size tables cross via all_gather;
          every process assembles the full stream, applies the
          reference's STREAMINFO-total stop semantics, verifies MD5,
-         and returns an identical DecodedFLAC, whose stats hold this
-         process's host-clock `scan_ms` (steps 1-2) and `rescan_ms`
-         (0.0), the keys decode_to_device reports.
+         and returns an identical DecodedFLAC, whose stats hold what
+         range_chunks recorded: this process's host-clock `scan_ms`
+         (steps 1-2), `rescan_ms` (0.0) and the scan's `scan_parse_ms`
+         and `scan_emit_ms`, the keys decode_to_device reports.
 
     Falls back to decode_longstream_distributed when any process's
     range declines the pack2 scan (the flag itself is exchanged, so
@@ -238,9 +238,9 @@ def decode_pack2_distributed(data: bytes, check_crc: bool = False,
     Pn = _world()[1]
     br = BitReader(data)
     info = parse_metadata(br)
-    times = {}
-    starts, cks = range_chunks(data, info, br.pos // 8, len(devices),
-                               check_crc=check_crc, stats=times)
+    with recording() as rec:
+        starts, cks = range_chunks(data, info, br.pos // 8, len(devices),
+                                   check_crc=check_crc)
     if cks is None:
         return decode_longstream_distributed(
             data, check_crc=check_crc, verify_md5=verify_md5,
@@ -303,7 +303,7 @@ def decode_pack2_distributed(data: bytes, check_crc: bool = False,
         interleaved=out,
         stats={"shards": len(starts), "processes": Pn,
                "frames": int(len(all_bs)),
-               "engine": "pack2-distributed", **times},
+               "engine": "pack2-distributed", **rec.stats},
     )
 
 

@@ -36,6 +36,8 @@ from ..oracle import parse_metadata
 from ..plan import StreamPlan
 from ..result import DecodedFLAC, container_dtype
 from ..utils.log import get_logger
+from ..utils.profiler import maybe_trace
+from ..utils.timer import recording, span
 from .device import (estimate_total_frames, resolve_device, upload,
                      verify_stream_md5)
 from .pack import Packer
@@ -140,25 +142,36 @@ def launch_plan(staged: StagedPlan, device):
     """The device half: upload the staged plan to `device` (one copy of
     the packed buffer, else one per array) and queue its
     reconstruction. Returns the PCM tensor [F, B8, C] without waiting
-    for it."""
+    for it. Records `reconstruct_upload_ms` and `reconstruct_launch_ms`
+    in the open call (utils/timer.py)."""
     if staged.buf is not None:
-        return reconstruct_packed(upload(staged.buf, device),
-                                  spec=staged.spec,
-                                  class_names=staged.class_names,
-                                  **staged.kw)
-    t, ci = plan_to_torch(staged.arrays, staged.class_idx, device)
-    return reconstruct(*(t[n] for n in _PLAN_ARRAYS[:7]), ci,
-                       t["channel_code"], **staged.kw)
+        with span("reconstruct.upload"):
+            buf = upload(staged.buf, device)
+        with span("reconstruct.launch"):
+            return reconstruct_packed(buf, spec=staged.spec,
+                                      class_names=staged.class_names,
+                                      **staged.kw)
+    with span("reconstruct.upload"):
+        t, ci = plan_to_torch(staged.arrays, staged.class_idx, device)
+    with span("reconstruct.launch"):
+        return reconstruct(*(t[n] for n in _PLAN_ARRAYS[:7]), ci,
+                           t["channel_code"], **staged.kw)
 
 
 def _run_reconstruct(plan: StreamPlan, device, async_: bool = False):
     """Pad the plan, upload it to `device` and reconstruct it there.
     Returns host PCM [F, B8, C] (container dtype), or (device tensor
-    [F, B8, C], F) when async_ (launched, not waited for)."""
-    pcm = launch_plan(stage_plan(plan), device)
+    [F, B8, C], F) when async_ (launched, not waited for). Records
+    `reconstruct_stage_ms` (padding and packing) and, when it waits,
+    `reconstruct_wait_ms` (the device-to-host copy, which waits for the
+    device) in the open call (utils/timer.py)."""
+    with span("reconstruct.stage"):
+        staged = stage_plan(plan)
+    pcm = launch_plan(staged, device)
     if async_:
         return pcm, plan.num_frames
-    return pcm[:plan.num_frames].cpu().numpy()
+    with span("reconstruct.wait"):
+        return pcm[:plan.num_frames].cpu().numpy()
 
 
 def _assemble(plan: StreamPlan, pcm: np.ndarray) -> np.ndarray:
@@ -203,10 +216,15 @@ def normalize(out: np.ndarray, bps: int) -> np.ndarray:
 
 def _finish(out: np.ndarray, bps: int, md5: bytes,
             verify_md5: bool) -> np.ndarray:
-    """The MD5 check (raises InvalidChecksum), then normalize."""
-    if verify_md5 and not verify_stream_md5(out, bps, md5):
-        raise InvalidChecksum("stream MD5 mismatch")
-    return normalize(out, bps)
+    """The MD5 check (raises InvalidChecksum), then normalize; records
+    `finish_md5_ms` and `finish_normalize_ms` in the open call."""
+    if verify_md5:
+        with span("finish.md5"):
+            ok = verify_stream_md5(out, bps, md5)
+        if not ok:
+            raise InvalidChecksum("stream MD5 mismatch")
+    with span("finish.normalize"):
+        return normalize(out, bps)
 
 
 def decode_pipelined(data: bytes, chunk_frames: int = 64,
@@ -348,6 +366,13 @@ def decode(data: bytes, check_crc: bool = False, verify_md5: bool = True,
     when it is available (else the Python one).
     safe_lpc: route an int32 stream's LPC subframes through the int64
     accumulator (lpc64), as the JAX package's safe_lpc does.
+
+    The torch engine's `stats` hold the call's host-clock phases
+    (utils/timer.py): `plan_ms` (build_plan: `plan_index_ms`,
+    `plan_convert_ms` with the C++ indexer), `reconstruct_ms`
+    (`reconstruct_stage_ms`, `reconstruct_upload_ms`,
+    `reconstruct_launch_ms`, `reconstruct_wait_ms`, `assemble_ms`) and
+    `finish_ms` (`finish_md5_ms`, `finish_normalize_ms`).
     """
     if engine not in ENGINES:
         # A typo'd engine must not fall through to a default path.
@@ -357,38 +382,43 @@ def decode(data: bytes, check_crc: bool = False, verify_md5: bool = True,
         return _decode_native(data, check_crc, verify_md5)
 
     device = resolve_device(device)
-    plan = build_plan(data, check_crc=check_crc,
-                      prefer_native=prefer_native)
-    if safe_lpc and plan.rows.dtype == np.int32:
-        plan.wide = (plan.kind == 3)
-    if _log_stream.isEnabledFor(10):
-        _log_stream.debug(
-            "decode: %d bytes sr=%d ch=%d bps=%d frames=%d subframes=%d",
-            len(data), plan.info.sample_rate, plan.info.channel_count,
-            plan.info.bits_per_sample, plan.num_frames,
-            plan.num_subframes)
-    if _log_frame.isEnabledFor(10) and plan.num_frames:
-        for f in range(plan.num_frames):
-            _log_frame.debug("frame %d @%d bs=%d ch_code=%d", f,
-                             plan.frame_byte_offset[f],
-                             plan.block_size[f], plan.channel_code[f])
-    if plan.num_frames == 0:
-        interleaved = np.zeros(0, dtype=container_dtype(
-            plan.info.bits_per_sample))
-        path = "empty"
-    else:
-        from ..utils.profiler import maybe_trace
-        with maybe_trace("zflac_tpu_torch.decode", device):
-            interleaved = _assemble(plan, _run_reconstruct(plan, device))
-        path = "rows"
-        _log_kernel.debug("reconstruct path=%s classes=%s", path,
-                          {k: len(v) for k, v in plan.classes().items()
-                           if len(v)})
-    interleaved = _finish(interleaved, plan.info.bits_per_sample,
-                          plan.info.md5, verify_md5)
+    with maybe_trace("zflac_tpu_torch.decode", device), recording() as rec:
+        with span("plan"):
+            plan = build_plan(data, check_crc=check_crc,
+                              prefer_native=prefer_native)
+        if safe_lpc and plan.rows.dtype == np.int32:
+            plan.wide = (plan.kind == 3)
+        if _log_stream.isEnabledFor(10):
+            _log_stream.debug(
+                "decode: %d bytes sr=%d ch=%d bps=%d frames=%d "
+                "subframes=%d", len(data), plan.info.sample_rate,
+                plan.info.channel_count, plan.info.bits_per_sample,
+                plan.num_frames, plan.num_subframes)
+        if _log_frame.isEnabledFor(10) and plan.num_frames:
+            for f in range(plan.num_frames):
+                _log_frame.debug("frame %d @%d bs=%d ch_code=%d", f,
+                                 plan.frame_byte_offset[f],
+                                 plan.block_size[f], plan.channel_code[f])
+        if plan.num_frames == 0:
+            interleaved = np.zeros(0, dtype=container_dtype(
+                plan.info.bits_per_sample))
+            path = "empty"
+        else:
+            with span("reconstruct"):
+                pcm = _run_reconstruct(plan, device)
+                with span("assemble"):
+                    interleaved = _assemble(plan, pcm)
+            path = "rows"
+            _log_kernel.debug("reconstruct path=%s classes=%s", path,
+                              {k: len(v) for k, v in plan.classes().items()
+                               if len(v)})
+        with span("finish"):
+            interleaved = _finish(interleaved, plan.info.bits_per_sample,
+                                  plan.info.md5, verify_md5)
     stats = dict(plan.stats)
     stats["engine"] = "torch"
     stats["path"] = path
+    stats.update(rec.stats)
     return DecodedFLAC(
         channels=plan.channels or plan.info.channel_count,
         sample_rate=plan.sample_rate or plan.info.sample_rate,

@@ -34,6 +34,7 @@ copies of the JAX package's.
 
 from __future__ import annotations
 
+import contextvars
 import hashlib
 import os
 import time
@@ -53,6 +54,8 @@ from ..ops.lpc2w import lpc2w33_reconstruct, lpc2w_reconstruct
 from ..ops.packtail import packtail
 from ..ops.rice16 import rice16_unpack_rows
 from ..result import DecodedFLAC, container_dtype
+from ..utils.profiler import maybe_trace
+from ..utils.timer import count, merge, recording, span
 from .reconstruct import decorrelate2, fixed_integrate_t
 from .wide import join_i64, wrap_to
 
@@ -476,6 +479,14 @@ def scan_pack2_chunks(data: bytes, pos: int, info, chunk_frames: int,
     its class blocks and patch table are padded to multiples of 32
     lanes. Bp is forced for all; W is chained within a range.
 
+    Records in the open call (utils/timer.py): `scan_anchors_ms` and
+    `scan_ranges_ms` (the thread pool's wall time), or `scan_serial_ms`
+    for one serial scan; `scan_ranges`, the ranges of the first pass
+    (1 when it is one serial scan), with `scan_range_sum_ms` and
+    `scan_range_max_ms` of their wall times on their threads; and
+    `scan_fallbacks`, 1 when a decline or chain break sent the stream to
+    one serial scan after all.
+
     Returns a list of (start_byte, Pack2Chunk), or None (decline)."""
 
     def seq(a, stop):
@@ -498,30 +509,69 @@ def scan_pack2_chunks(data: bytes, pos: int, info, chunk_frames: int,
             p = ck.landed
         return out
 
+    def timed(a, stop):
+        t = time.perf_counter()
+        out = seq(a, stop)
+        return out, (time.perf_counter() - t) * 1e3
+
+    def worker(a, stop):
+        # In a copy of the call's context: the range's pack2_range calls
+        # record into a recorder of its own, which the calling thread
+        # merges.
+        with recording() as rec:
+            out, ms = timed(a, stop)
+        return out, ms, rec.stats
+
+    def record(range_ms, fallback: bool):
+        count("scan_ranges", len(range_ms))
+        count("scan_range_sum_ms", sum(range_ms))
+        count("scan_range_max_ms", max(range_ms))
+        count("scan_fallbacks", int(fallback))
+
     auto = workers <= 0
     if auto:
         workers = min(os.cpu_count() or 1, 8)
-    span = len(data) - pos
+    nbytes = len(data) - pos
     # Parallelism pays only when several chunk scans fit the span;
     # explicit workers (> 0) force the split path.
-    if workers < 2 or (auto and span < (1 << 20)):
-        return seq(pos, len(data))
-    bounds = [pos + span * k // workers for k in range(workers + 1)]
-    anchors = [native_indexer.find_anchor(data, bounds[k], bounds[k + 1],
-                                          info)
-               for k in range(1, workers)]
+    if workers < 2 or (auto and nbytes < (1 << 20)):
+        with span("scan.serial"):
+            out, ms = timed(pos, len(data))
+        record([ms], False)
+        return out
+    bounds = [pos + nbytes * k // workers for k in range(workers + 1)]
+    with span("scan.anchors"):
+        anchors = [native_indexer.find_anchor(data, bounds[k],
+                                              bounds[k + 1], info)
+                   for k in range(1, workers)]
     starts = sorted({pos} | {a for a in anchors if a >= 0})
     ranges = [(s, starts[i + 1] if i + 1 < len(starts) else len(data))
               for i, s in enumerate(starts)]
-    with ThreadPoolExecutor(max_workers=workers) as ex:
-        parts = list(ex.map(lambda r: seq(*r), ranges))
+    with span("scan.ranges"), ThreadPoolExecutor(max_workers=workers) as ex:
+        futures = [ex.submit(contextvars.copy_context().run, worker, *r)
+                   for r in ranges]
+        done = [f.result() for f in futures]
+    for _, _, stats in done:
+        merge(stats)
+    out = _chain(pos, ranges, [part for part, _, _ in done])
+    record([ms for _, ms, _ in done], out is None)
+    if out is None:
+        with span("scan.serial"):
+            return seq(pos, len(data))
+    return out
+
+
+def _chain(pos: int, ranges, parts):
+    """The parallel scan's chunks in stream order, or None when a range
+    declined or did not start where the previous one landed (the serial
+    scan is then the truth)."""
     if any(p is None for p in parts):
-        return seq(pos, len(data))
+        return None
     out = []
     expect = pos
     for (a, _stop), part in zip(ranges, parts):
-        if a != expect:                 # chain break: serial truth
-            return seq(pos, len(data))
+        if a != expect:
+            return None
         out.extend(part)
         if part:
             expect = part[-1][1].landed
@@ -575,8 +625,10 @@ def reconstruct_chunks(cks, devices, each=None) -> list:
     """Chunk i of one stream's pack2 chunks uploaded to
     devices[i % len(devices)] and reconstructed there, every chunk
     queued and none waited for: the list of PCM tensors [Fp, Bp, C].
-    `each(buf, geom)`, when given, is called on every chunk's uploaded
-    buffer after its reconstruction is queued. Raises
+    Records `enqueue_upload_ms` (each chunk's pinned copy and queued H2D)
+    and `enqueue_launch_ms` (its torch calls and kernel launches) in the
+    open call. `each(buf, geom)`, when given, is called on every
+    chunk's uploaded buffer after its reconstruction is queued. Raises
     InconsistentParameters when the stream's parameters change between
     chunks."""
     pcms = []
@@ -585,46 +637,49 @@ def reconstruct_chunks(cks, devices, each=None) -> list:
                 ck.bits_per_sample != cks[0].bits_per_sample):
             raise InconsistentParameters(
                 "stream parameters changed mid-stream")
-        buf, geom = chunk_to_torch(ck, devices[i % len(devices)])
-        pcms.append(reconstruct_pack2(
-            buf, geom, container_bits=fmt.container_bits(ck.bits_per_sample)))
+        with span("enqueue.upload"):
+            buf, geom = chunk_to_torch(ck, devices[i % len(devices)])
+        with span("enqueue.launch"):
+            pcms.append(reconstruct_pack2(
+                buf, geom,
+                container_bits=fmt.container_bits(ck.bits_per_sample)))
         if each is not None:
             each(buf, geom)
     return pcms
 
 
 def stream_chunks(data: bytes, info, pos: int, *, check_crc: bool = False,
-                  chunk_frames: int = 0, scan_workers: int = 0,
-                  stats: dict | None = None):
+                  chunk_frames: int = 0, scan_workers: int = 0):
     """The pack2 chunks decode_to_device reconstructs for the stream
     whose frames start at byte `pos`: a parallel scan whose chunks each
     keep their own geometry (scan_pack2_chunks), all at the card
     layout's Bp of the stream's largest block. Returns a list of
-    Pack2Chunk, or None (decline). Fills `stats` with the host-clock
-    time of the scan; `rescan_ms` is 0, since no chunk is scanned twice
-    (the JAX package re-scans diverging chunks with their union
-    geometry, and tools read the key from both)."""
+    Pack2Chunk, or None (decline). Records in the open call
+    (utils/timer.py) the host-clock `scan_ms`, with the frame estimate's
+    `scan_estimate_ms` and scan_pack2_chunks' phases inside it, and
+    `rescan_ms` 0, since no chunk is scanned twice (the JAX package
+    re-scans diverging chunks with their union geometry, and tools read
+    the key from both)."""
     Bp = _bucket_block(max(info.max_block_size, 16))
-    t_scan = time.perf_counter()
-    if chunk_frames <= 0:
-        # Whole stream in one chunk up to ~64 MiB of padded rows;
-        # longer streams go in fixed-size chunks.
-        total_frames = estimate_total_frames(data, pos, info,
-                                             check_crc=check_crc)
-        if total_frames is None:
-            return None
-        chunk_frames = 1
-        while chunk_frames < total_frames and \
-                chunk_frames * info.channel_count * Bp < (1 << 24):
-            chunk_frames *= 2
+    with span("scan"):
+        if chunk_frames <= 0:
+            # Whole stream in one chunk up to ~64 MiB of padded rows;
+            # longer streams go in fixed-size chunks.
+            with span("scan.estimate"):
+                total_frames = estimate_total_frames(data, pos, info,
+                                                     check_crc=check_crc)
+            if total_frames is None:
+                return None
+            chunk_frames = 1
+            while chunk_frames < total_frames and \
+                    chunk_frames * info.channel_count * Bp < (1 << 24):
+                chunk_frames *= 2
 
-    chunks = scan_pack2_chunks(data, pos, info, chunk_frames, Bp,
-                               check_crc, workers=scan_workers)
+        chunks = scan_pack2_chunks(data, pos, info, chunk_frames, Bp,
+                                   check_crc, workers=scan_workers)
     if not chunks:
         return None
-    if stats is not None:
-        stats.update(scan_ms=(time.perf_counter() - t_scan) * 1e3,
-                     rescan_ms=0.0)
+    count("rescan_ms", 0.0)
     return [ck for _, ck in chunks]
 
 
@@ -640,34 +695,37 @@ def decode_to_device(data: bytes, *, device="cuda", check_crc: bool = False,
     in parallel (scan_workers=0 picks the core count, up to 8), and
     each chunk is reconstructed in the geometry its own scan gave it;
     uploads and kernels are queued on the current stream without
-    waiting."""
+    waiting.
+
+    `stats` holds the call's host-clock phases (utils/timer.py; the
+    device work itself is not waited for): `scan_ms` (the scan with the
+    frame estimate, stream_chunks) and `enqueue_ms` (queueing the
+    uploads and kernels, reconstruct_chunks), with their parts and the
+    scan's counters."""
     device = resolve_device(device)
     if not native_indexer.native_available():
         return None
-    br = BitReader(data)
-    info = parse_metadata(br)
-    if info.bits_per_sample > 32:
-        return None
-    times = {}
-    cks = stream_chunks(data, info, br.pos // 8, check_crc=check_crc,
-                        chunk_frames=chunk_frames,
-                        scan_workers=scan_workers, stats=times)
-    if not cks:
-        return None
+    with maybe_trace("zflac_tpu_torch.decode_to_device", device), \
+            recording() as rec:
+        br = BitReader(data)
+        info = parse_metadata(br)
+        if info.bits_per_sample > 32:
+            return None
+        cks = stream_chunks(data, info, br.pos // 8, check_crc=check_crc,
+                            chunk_frames=chunk_frames,
+                            scan_workers=scan_workers)
+        if not cks:
+            return None
 
-    t_enqueue = time.perf_counter()
-    dd = DeviceDecoded(
-        channels=cks[0].C, sample_rate=cks[0].sample_rate,
-        bits_per_sample=cks[0].bits_per_sample, total_samples=0,
-        device=device, md5=info.md5,
-        chunks=reconstruct_chunks(cks, [device]),
-        num_frames=[ck.F for ck in cks],
-        block_sizes=[ck.f_block_size for ck in cks],
-        stats={"engine": "pack2"})
-    # Host-clock phase times: the scan (with the frame estimate) and
-    # queueing the uploads and kernels (the device work itself is not
-    # waited for).
-    t_end = time.perf_counter()
+        with span("enqueue"):
+            dd = DeviceDecoded(
+                channels=cks[0].C, sample_rate=cks[0].sample_rate,
+                bits_per_sample=cks[0].bits_per_sample, total_samples=0,
+                device=device, md5=info.md5,
+                chunks=reconstruct_chunks(cks, [device]),
+                num_frames=[ck.F for ck in cks],
+                block_sizes=[ck.f_block_size for ck in cks],
+                stats={"engine": "pack2"})
     dd.total_samples = sum(int(bs.sum()) for bs in dd.block_sizes)
     cut = cut_at_total(dd.num_frames, dd.block_sizes, info.total_samples)
     if cut is not None:
@@ -676,5 +734,5 @@ def decode_to_device(data: bytes, *, device="cuda", check_crc: bool = False,
         del dd.num_frames[ci + 1:]
         del dd.block_sizes[ci + 1:]
     dd.stats.update(frames=sum(dd.num_frames), chunks=len(dd.chunks),
-                    **times, enqueue_ms=(t_end - t_enqueue) * 1e3)
+                    **rec.stats)
     return dd

@@ -2,10 +2,12 @@
 of zflac_tpu/utils/profiler.py, which traces with jax.profiler).
 
 Set ZFLAC_TPU_PROFILE=/some/dir to capture a torch.profiler trace of
-every decode() call region: one Chrome trace file per call in that
-directory (open it in chrome://tracing or Perfetto), with the region
-under the label passed to maybe_trace and, when the decode runs on a
-card, the CUDA kernels it launched. No-op (one environment check at
+every whole `decode()` (the torch engine: plan through finish) and
+`decode_to_device()` (scan through enqueue) call: one Chrome trace file
+per call in that directory (open it in chrome://tracing or Perfetto),
+with the call under the label passed to maybe_trace, the program's
+`zflac.*` spans inside it (utils/timer.py) and, when the decode runs on
+a card, the CUDA kernels it launched. No-op (one environment check at
 import) when unset."""
 
 from __future__ import annotations
