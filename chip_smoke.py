@@ -218,7 +218,9 @@ from zflac_tpu_torch.ops.rice16 import (rice16_unpack, rice16_unpack_ref,
                                         rice16_unpack_rows_ref)
 from zflac_tpu_torch.runtime import decode as rd
 from zflac_tpu_torch.runtime import device as rt
-from zflac_tpu_torch.runtime.reconstruct import lpc_class_inputs
+from zflac_tpu_torch.runtime.reconstruct import (fixed_integrate_t,
+                                                lpc_class_inputs)
+from zflac_tpu_torch.runtime.wide import join_i64
 from zflac_tpu_torch.tools import fuzz_native, kernel_ab, profile_pack2
 from zflac_tpu_torch.tools.kernel_inputs import packtail_inputs, rice_groups
 from zflac_tpu_torch.tools.kernel_sass import kernel_name
@@ -348,6 +350,7 @@ def kernel_checks(dev, diff: Diff, what: str, ck) -> dict:
         diff.check(lpc_name, f"{what} {cname}",
                    rt.LPC_KERNELS[lpc_name](*args),
                    LPC_PLAIN[lpc_name](*args))
+    fixed = fixed_launch_checks(diff, what, lpc_name, rows_t, buf, geom)
     stack = rt.sorted_stack(rows_t, buf, geom, container_bits=cb)
     tail = rt.tail_inputs(buf, geom)
     if geom.C == 2 and cb in (8, 16):
@@ -356,7 +359,118 @@ def kernel_checks(dev, diff: Diff, what: str, ck) -> dict:
                    packtail_ref(stack, *tail, Fp=geom.Fp,
                                 container_bits=cb))
     return dict(ck=ck, buf=buf, geom=geom, win=win, meta=meta, lpc=lpc,
-                lpc_name=lpc_name, stack=stack, tail=tail, cb=cb)
+                lpc_name=lpc_name, stack=stack, tail=tail, cb=cb,
+                fixed=fixed)
+
+
+def fixed_launch_checks(diff: Diff, what: str, lpc_name: str, rows_t, buf,
+                        geom) -> int:
+    """The launch that holds the chunk's fixed class in class_stack
+    (rt.lpc_launches' "fixed": the fixed lanes at hist 8, and the lpc8
+    class where the chunk has one) against its plain version, and its
+    fixed lanes against fixed_integrate_t, the seeded cumsums the JAX
+    package runs, on the card. Returns the fixed lanes checked (0 for a
+    chunk without a fixed class)."""
+    args = rt.lpc_launches(rows_t, buf, geom).get("fixed")
+    if args is None:
+        return 0
+    got = rt.LPC_KERNELS[lpc_name](*args)
+    diff.check(lpc_name, f"{what} fixed launch", got,
+               LPC_PLAIN[lpc_name](*args))
+    sl = dict(rt._class_slices(geom))["fixed"]
+    seeds_t = geom.sect(buf, "seeds", geom.Ssort * 4).view(4, geom.Ssort)
+    if geom.wide:
+        seeds_t = join_i64(
+            geom.sect(buf, "seeds_hi", geom.Ssort * 4).view(4, geom.Ssort),
+            seeds_t)
+    n = sl.stop - sl.start
+    diff.check(lpc_name, f"{what} fixed lanes against fixed_integrate_t",
+               got[:, :n], fixed_integrate_t(rows_t[:, sl], args[3][:n],
+                                             seeds_t[:, sl]))
+    return n
+
+
+# The synthetic fixed lanes: a parallel-scan chunk's class and bench16's
+# lpc8 class, at the bench block, as a lane slice 32 lanes into a wider
+# array (where the fixed class sits in a chunk with a const class).
+FIXED_N = (256, 2048)
+FIXED_FORMS = (("lpc2", np.int32, 16), ("lpc2", np.int32, 32),
+               ("lpc2w", np.int32, 32), ("lpc2w33", np.int64, 24),
+               ("lpc2w33", np.int64, 33))
+
+
+def fixed_signal_inputs(rng, n: int, B: int, bits: int, dtype):
+    """Seeded fixed-predictor lanes of orders 0-4 in turn: random
+    samples of `bits` bits [B, n], the rows as the scan leaves them
+    (warm-ups at t < order, the order-th differences after) and the
+    scan's finite-difference seeds [4, n], all wrapped to `dtype`."""
+    samples = rng.integers(-(1 << (bits - 1)), 1 << (bits - 1), (B, n),
+                           dtype=np.int64)
+    order = (np.arange(n) % 5).astype(np.int32)
+    rows = samples.copy()
+    for k in range(1, 5):
+        lanes = order == k
+        rows[k:, lanes] = np.diff(samples[:, lanes], n=k, axis=0)
+    tri = np.array([[1, 0, 0, 0], [-1, 1, 0, 0], [1, -2, 1, 0],
+                    [-1, 3, -3, 1]], dtype=np.int64)
+    seeds = tri @ samples[:4]
+    seeds[np.arange(4)[:, None] >= order[None, :]] = 0
+    return (samples.astype(dtype), rows.astype(dtype), seeds.astype(dtype),
+            order)
+
+
+def fixed_signal_checks(rng, t, diff: Diff) -> list:
+    """Fixed lanes through lpc2 (16-bit samples, and full-range int32
+    ones whose sums wrap), lpc2w (full-range int32) and lpc2w33 (24- and
+    33-bit samples in int64) with rt.fixed_cfwd's coefficients and shift
+    0, at B 4096 and FIXED_N lanes: equal to the samples and to
+    fixed_integrate_t on the card, bit for bit. Returns a line a case."""
+    out = []
+    for name, dtype, bits in FIXED_FORMS:
+        for n in FIXED_N:
+            samples, rows, seeds, order = fixed_signal_inputs(
+                rng, n, 4096, bits, dtype)
+            wide = t(np.pad(rows, ((0, 0), (32, 32))))[:, 32:32 + n]
+            order_t = t(order)
+            got = rt.LPC_KERNELS[name](
+                wide, rt.fixed_cfwd(order_t),
+                torch.zeros(n, dtype=torch.int32, device=order_t.device),
+                order_t)
+            what = f"fixed lanes, {bits}-bit samples, n={n}"
+            diff.check(name, f"{what} against the samples", got, t(samples))
+            diff.check(name, f"{what} against fixed_integrate_t", got,
+                       fixed_integrate_t(t(rows), order_t, t(seeds)))
+            out.append(f"{name} {bits}-bit [4096, {n}]")
+    return out
+
+
+def scan_free_check(dev, chunks) -> str:
+    """One torch.profiler pass over reconstruct_pack2 on each (name,
+    Pack2Chunk): raises if a device kernel of torch.cumsum's outer-dim
+    scan ran, or if the trace shows no lpc2 kernel (no device activity
+    recorded). Returns the kernels seen, with their counts."""
+    from torch.profiler import ProfilerActivity, profile
+    loaded = [(rt.chunk_to_torch(ck, dev),
+               fmt.container_bits(ck.bits_per_sample)) for _, ck in chunks]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for (buf, geom), cb in loaded:
+            rt.reconstruct_pack2(buf, geom, container_bits=cb)
+        torch.cuda.synchronize()
+    seen = Counter(
+        e.name() for e in prof.profiler.kineto_results.events()
+        if str(e.device_type()).split(".")[-1] == "CUDA"
+        and not e.is_user_annotation())
+    scans = [k for k in seen if "scan_outer_dim" in k]
+    if scans or not any("lpc2_kernel" in k for k in seen):
+        raise AssertionError(f"reconstruct_pack2 on "
+                             f"{[name for name, _ in chunks]}: device "
+                             f"kernels {dict(seen)}")
+    short = Counter()
+    for k, n in seen.items():
+        short[re.sub(r"<.*", "", k.replace("void ", "")).split("::")[-1]] += n
+    return "; ".join(f"{k} x {n}" for k, n in sorted(short.items()))
 
 
 def class_lpc_checks(diff: Diff, what: str, t: dict, lists: dict) -> dict:
@@ -1319,11 +1433,15 @@ def sharded_geometry(dev, name: str, data: bytes, mesh, where: str,
 def path_launches(geoms, cb: int) -> dict:
     """The launches reconstruct_pack2 makes on chunks of these
     geometries: rice16 once a chunk, the chunk's LPC kernel once per LPC
-    class, packtail once a stereo chunk in an 8/16-bit container."""
+    class and once more for a fixed class without an lpc8 class to share
+    a launch with, packtail once a stereo chunk in an 8/16-bit
+    container."""
     expect = Counter()
     for g in geoms:
         expect["rice16"] += 1
-        n_lpc = sum(name.startswith("lpc") for name, _ in g.classes)
+        names = [name for name, _ in g.classes]
+        n_lpc = sum(name.startswith("lpc") for name in names) + (
+            "fixed" in names and "lpc8" not in names)
         if n_lpc:
             expect[rt.lpc_kernel(g, cb)] += n_lpc
         if g.C == 2 and cb in (8, 16):
@@ -1990,8 +2108,11 @@ def main() -> None:
     # whose Bp is no multiple of 128 and chunks of several classes,
     # whose class blocks start at lanes 32 and 64.
     odd_bp, multi = [], []
+    fixed_seen = Counter()
     for name, (data, _) in corpus.items():
-        ck = kernel_checks(dev, diff, name, first_chunk(data))["ck"]
+        d = kernel_checks(dev, diff, name, first_chunk(data))
+        ck = d["ck"]
+        fixed_seen["corpus chunks"] += d["fixed"]
         if ck.Bp % 128:
             odd_bp.append(f"{name} Bp {ck.Bp}")
         if len(ck.classes) > 1:
@@ -2004,10 +2125,28 @@ def main() -> None:
         raise AssertionError(f"{MULTI_CLASS_CASE}: one class")
     # Three classes: the LPC class's lane slice starts at lane 64.
     three = first_chunk(three_class_stream())
-    kernel_checks(dev, diff, "three_class_stream", three)
     if [(c, np_) for c, _, np_ in three.classes] != [
             ("const", 32), ("fixed", 32), ("lpc8", 32)]:
         raise AssertionError(f"three_class_stream: {geom_line(three)}")
+    # The fixed class through the LPC kernels: seeded lanes at the bench
+    # block, the fixed lanes of every chunk checked above, and no
+    # torch.cumsum scan on the card where a chunk has fixed lanes (the
+    # three-class chunk's fixed and lpc8 classes share a launch).
+    fixed_lines = fixed_signal_checks(
+        np.random.default_rng(18), lambda a: torch.as_tensor(a, device=dev),
+        diff)
+    for name in BENCH:
+        fixed_seen[name] = sum(d["fixed"]
+                               for d in (ins[name], *path_ins[name]))
+    fixed_seen[TRACK] = sum(d["fixed"] for d in path_ins[TRACK])
+    fixed_seen["three_class_stream"] = kernel_checks(
+        dev, diff, "three_class_stream", three)["fixed"]
+    if not fixed_seen["corpus chunks"] or not fixed_seen["three_class_stream"]:
+        raise AssertionError(f"no fixed lanes checked: {dict(fixed_seen)}")
+    scan_free = scan_free_check(dev, [
+        ("bench16 chunk", ins["bench16"]["ck"]),
+        ("three_class_stream", three),
+        ("fixed order 2", first_chunk(corpus["fixed order 2"][0]))])
     rows_ins = {name: rows_lpc_checks(dev, diff, f"{name} rows plan",
                                       build_plan(data))
                 for name, (data, _) in benches.items()}
@@ -2059,6 +2198,16 @@ def main() -> None:
         f"bit-exact: {len(odd_bp)} with Bp no multiple of 128 "
         f"({'; '.join(odd_bp)}); {len(multi)} of several classes "
         f"({'; '.join(multi)}); three_class_stream: {geom_line(three)}")
+    say("kernels", f"fixed lanes through the LPC kernels (fixed_cfwd, "
+        f"shift 0) == the samples and fixed_integrate_t: "
+        f"{'; '.join(fixed_lines)}; the chunks' fixed lanes (launch == "
+        f"plain, lanes == fixed_integrate_t), lanes checked: the bench "
+        f"streams' whole-stream and path chunks, the corpus chunks and "
+        f"three_class_stream (fixed and lpc8 in one launch): "
+        f"{dict(fixed_seen)}")
+    say("kernels", f"reconstruct_pack2 on bench16's chunk, "
+        f"three_class_stream and 'fixed order 2' under torch.profiler: no "
+        f"outer-dim scan; device kernels {scan_free}")
     say("kernels", f"rice16, rice16_flat and packtail bit-exact on seeded "
         f"inputs: {'; '.join(streamed)} (rice16 also with win and meta, "
         f"packtail with the stack, at an odd offset)")

@@ -9,12 +9,15 @@ chunk. Phase 2 uploads that buffer with one pinned, stream-ordered
 host-to-device copy and reconstructs the chunk on the device:
 
   rice16 kernel -> patch scatter, warm-up splice, live mask ->
-  per class: const broadcast | verbatim | fixed cumsums | LPC kernel
-  -> stack + transpose -> tail -> [Fp, Bp, C] PCM.
+  per class: const broadcast | verbatim | LPC kernel (the fixed
+  class as LPC lanes) -> stack + transpose -> tail -> [Fp, Bp, C] PCM.
 
 The LPC kernel is lpc2 in the 8/16-bit containers, lpc2w (64-bit
 accumulator) in the 32-bit container and lpc2w33 on wide chunks, whose
-33-bit side channels make every value of the chunk int64. The tail is
+33-bit side channels make every value of the chunk int64. A fixed
+predictor is an LPC predictor with shift 0 and constant coefficients,
+so the fixed class runs in the same kernel at hist 8, in the lpc8
+class's launch where the chunk has one (lpc_launches). The tail is
 the packtail kernel for stereo in the 8/16-bit containers, else plain
 ops: row gather, wasted-bits shift, decorrelation, transpose and a
 wrapping cast to the container dtype. The kernels are hand-written
@@ -35,6 +38,7 @@ copies of the JAX package's.
 from __future__ import annotations
 
 import contextvars
+import functools
 import hashlib
 import os
 import time
@@ -56,10 +60,14 @@ from ..ops.rice16 import rice16_unpack_rows
 from ..result import DecodedFLAC, container_dtype
 from ..utils.profiler import maybe_trace
 from ..utils.timer import count, merge, recording, span
-from .reconstruct import decorrelate2, fixed_integrate_t
+from .reconstruct import decorrelate2
 from .wide import join_i64, wrap_to
 
 _HIST = {"lpc8": 8, "lpc16": 16, "lpc32": 32}
+# The fixed predictors of orders 0-4 (RFC 9639 section 9.2.5) as LPC
+# coefficients: row k holds c_1..c_k of order k, s[t] = residual +
+# sum c_j s[t-j]. Exact in any wrapping sum, as the k-fold cumsum is.
+FIXED_COEFFS = ((), (1,), (2, -1), (3, -3, 1), (4, -6, 4, -1))
 LPC_KERNELS = {"lpc2": lpc2_reconstruct, "lpc2w": lpc2w_reconstruct,
                "lpc2w33": lpc2w33_reconstruct}
 _CONTAINER = {8: torch.int8, 16: torch.int16, 32: torch.int32}
@@ -217,19 +225,63 @@ def lpc_class_inputs(rows_t, buf, geom: Pack2Geom) -> dict:
             for name, sl in _class_slices(geom) if name in _HIST}
 
 
+@functools.cache
+def _fixed_table(device: torch.device):
+    """FIXED_COEFFS as a constant [8, 5] int32 table on `device`, column
+    k the coefficients of order k (row r = c_{r+1}), made once a device
+    so that no chunk pays a host-to-device copy for it."""
+    host = torch.zeros((8, len(FIXED_COEFFS)), dtype=torch.int32)
+    for k, coeffs in enumerate(FIXED_COEFFS):
+        host[:k, k] = torch.tensor(coeffs, dtype=torch.int32)
+    return host.to(device)
+
+
+def fixed_cfwd(order):
+    """The hist-8 LPC coefficients [8, n] int32 (row r = c_{r+1}) of
+    fixed lanes of these orders [n]: one gather from _fixed_table. An
+    order outside 0-4, which no scan writes, reads as the nearest, as
+    fixed_integrate_t treats it."""
+    return _fixed_table(order.device).index_select(
+        1, torch.clamp(order, 0, 4))
+
+
+def lpc_launches(rows_t, buf, geom: Pack2Geom) -> dict:
+    """class_stack's LPC kernel launches: the name of each launch's
+    first class -> the kernel's arguments (rows [Bp, n], cfwd [hist, n],
+    shift [n], order [n]) over the launch's lanes. Each LPC class gets
+    its own launch at its hist. The fixed class runs as LPC lanes at
+    hist 8: the scan leaves its shift 0 and its warm-ups in the rows, so
+    only the coefficients are added (fixed_cfwd). Where the lpc8 class
+    follows it (PACK2_CLASSES puts the two side by side), one launch
+    over both classes' lanes serves them, keyed "fixed"; else the fixed
+    lanes get a launch of their own."""
+    launches = lpc_class_inputs(rows_t, buf, geom)
+    slices = dict(_class_slices(geom))
+    fixed = slices.get("fixed")
+    if fixed is None:
+        return launches
+    order = geom.sect(buf, "order", geom.Ssort)
+    shift = geom.sect(buf, "shift", geom.Ssort)
+    cfwd = fixed_cfwd(order[fixed])
+    lpc8 = slices.get("lpc8")
+    if lpc8 is not None:
+        cfwd = torch.cat([cfwd, launches.pop("lpc8")[1]], dim=1)
+        fixed = slice(fixed.start, lpc8.stop)
+    return {"fixed": (rows_t[:, fixed], cfwd, shift[fixed], order[fixed]),
+            **launches}
+
+
 def class_stack(rows_t, buf, geom: Pack2Geom, *, container_bits: int):
     """Every class reconstructed on its static lane slice (const
-    broadcast, verbatim, fixed cumsums, the LPC kernel of lpc_kernel),
-    stacked with one dead zero lane (the `inv` sentinel for padded
-    stream slots), still time-major: [Bp, Ssort + 1] in the rows'
-    dtype. The JAX package's stage="stack"."""
-    Bp, Ssort = geom.Bp, geom.Ssort
-    order = geom.sect(buf, "order", Ssort)
-    seeds_t = geom.sect(buf, "seeds", Ssort * 4).view(4, Ssort)
-    if geom.wide:
-        seeds_t = join_i64(
-            geom.sect(buf, "seeds_hi", Ssort * 4).view(4, Ssort), seeds_t)
-    lpc = lpc_class_inputs(rows_t, buf, geom)
+    broadcast, verbatim, and the fixed and LPC classes by the LPC kernel
+    of lpc_kernel, launched as lpc_launches gives), stacked with one
+    dead zero lane (the `inv` sentinel for padded stream slots), still
+    time-major: [Bp, Ssort + 1] in the rows' dtype. The JAX package's
+    stage="stack" (where the fixed class runs as seeded cumsums, equal
+    bit for bit). Counts `fixed_own_launches` in the open call (1 for a
+    chunk whose fixed lanes took a launch of their own)."""
+    Bp = geom.Bp
+    launches = lpc_launches(rows_t, buf, geom)
     lpc_fn = LPC_KERNELS[lpc_kernel(geom, container_bits)]
     seg_out = []
     for name, sl in _class_slices(geom):
@@ -238,12 +290,14 @@ def class_stack(rows_t, buf, geom: Pack2Geom, *, container_bits: int):
             seg_out.append(rc[0:1].expand(Bp, rc.shape[1]))
         elif name == "verbatim":
             seg_out.append(rc)
-        elif name == "fixed":
-            seg_out.append(fixed_integrate_t(rc, order[sl], seeds_t[:, sl]))
-        else:
-            seg_out.append(lpc_fn(*lpc[name]))
+        elif name in launches:
+            seg_out.append(lpc_fn(*launches[name]))
+        # else: lpc8, whose lanes the fixed class's launch holds
     seg_out.append(torch.zeros((Bp, 1), dtype=rows_t.dtype,
                                device=buf.device))
+    names = [name for name, _ in geom.classes]
+    count("fixed_own_launches",
+          int("fixed" in names and "lpc8" not in names))
     return torch.cat(seg_out, dim=1)
 
 
@@ -627,10 +681,12 @@ def reconstruct_chunks(cks, devices, each=None) -> list:
     queued and none waited for: the list of PCM tensors [Fp, Bp, C].
     Records `enqueue_upload_ms` (each chunk's pinned copy and queued H2D)
     and `enqueue_launch_ms` (its torch calls and kernel launches) in the
-    open call. `each(buf, geom)`, when given, is called on every
-    chunk's uploaded buffer after its reconstruction is queued. Raises
-    InconsistentParameters when the stream's parameters change between
-    chunks."""
+    open call, and counts there `fixed_lanes`, the chunks' fixed
+    subframes (all reconstructed by the LPC kernel, class_stack), beside
+    class_stack's `fixed_own_launches`. `each(buf, geom)`, when given,
+    is called on every chunk's uploaded buffer after its reconstruction
+    is queued. Raises InconsistentParameters when the stream's
+    parameters change between chunks."""
     pcms = []
     for i, ck in enumerate(cks):
         if (ck.sample_rate != cks[0].sample_rate or ck.C != cks[0].C or
@@ -643,6 +699,8 @@ def reconstruct_chunks(cks, devices, each=None) -> list:
             pcms.append(reconstruct_pack2(
                 buf, geom,
                 container_bits=fmt.container_bits(ck.bits_per_sample)))
+        count("fixed_lanes",
+              sum(n for name, n, _ in ck.classes if name == "fixed"))
         if each is not None:
             each(buf, geom)
     return pcms
@@ -700,8 +758,9 @@ def decode_to_device(data: bytes, *, device="cuda", check_crc: bool = False,
     `stats` holds the call's host-clock phases (utils/timer.py; the
     device work itself is not waited for): `scan_ms` (the scan with the
     frame estimate, stream_chunks) and `enqueue_ms` (queueing the
-    uploads and kernels, reconstruct_chunks), with their parts and the
-    scan's counters."""
+    uploads and kernels, reconstruct_chunks), with their parts, the
+    scan's counters and the fixed class's (`fixed_lanes`,
+    `fixed_own_launches`)."""
     device = resolve_device(device)
     if not native_indexer.native_available():
         return None

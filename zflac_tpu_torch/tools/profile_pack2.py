@@ -13,7 +13,8 @@ stages is what the added piece costs on the device:
     rows       residual_rows: rice16, patch scatter, warm-up splice,
                tail mask
     stack      + class_stack: the per-class reconstruction (the LPC
-               kernel, fixed cumsums) and the dead lane, time-major
+               kernel, the fixed class as its lanes) and the dead lane,
+               time-major
     transpose  sorted_stack: + the transpose to [Ssort + 1, Bp]
     signal     + stream_rows: the gather into stream order by `inv`
                (the general tail's first step)
