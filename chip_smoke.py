@@ -33,8 +33,12 @@ build/zflac_tpu_torch/, then:
      classes of every stream's rows-engine plan (gathered as the rows
      engine gathers them, the safe_lpc plans of bench16 and bench16_513
      too, and classes of 1, 7, 33 and 1026 members padded to a multiple
-     of 32 lanes as pad_plan pads them), and all of
-     them on seeded synthetic inputs (rice16, rice16_flat and packtail
+     of 32 lanes as pad_plan pads them), the rows engine's fixed
+     class as lanes of lpc / lpc64 (every plan's launch that holds it
+     against its plain version and its fixed lanes against
+     fixed_integrate, seeded fixed lanes of orders 0-4 at B 4096 against
+     the samples, and no torch.cumsum kernel under torch.profiler), and
+     all of them on seeded synthetic inputs (rice16, rice16_flat and packtail
      from the CPU tests' generators at the bench chunks' shapes, with
      Rice parameters up to 61, unary runs across words, Fp 1, Bp not a
      multiple of 4 or 8 and inputs at an odd offset; the five ring
@@ -218,8 +222,10 @@ from zflac_tpu_torch.ops.rice16 import (rice16_unpack, rice16_unpack_ref,
                                         rice16_unpack_rows_ref)
 from zflac_tpu_torch.runtime import decode as rd
 from zflac_tpu_torch.runtime import device as rt
-from zflac_tpu_torch.runtime.reconstruct import (fixed_integrate_t,
-                                                lpc_class_inputs)
+from zflac_tpu_torch.runtime.reconstruct import (fixed_integrate,
+                                                fixed_integrate_t,
+                                                lpc_class_inputs,
+                                                lpc_lanes_inputs)
 from zflac_tpu_torch.runtime.wide import join_i64
 from zflac_tpu_torch.tools import fuzz_native, kernel_ab, profile_pack2
 from zflac_tpu_torch.tools.kernel_inputs import packtail_inputs, rice_groups
@@ -444,33 +450,118 @@ def fixed_signal_checks(rng, t, diff: Diff) -> list:
     return out
 
 
+def rows_fixed_checks(dev, diff: Diff, what: str, plan) -> int:
+    """The rows engine's launch that holds a plan's fixed class
+    (reconstruct_core: the fixed lanes, then the lpc class's where the
+    plan has one, lpc_lanes_inputs) through lpc or lpc64 against its
+    plain version, and its fixed lanes against fixed_integrate, the
+    seeded cumsums the JAX package runs, on the card. Returns the fixed
+    lanes checked (0 for a plan without a fixed class)."""
+    arrays, class_idx = rd.pad_plan(plan)
+    if "fixed" not in class_idx:
+        return 0
+    t, ci = rd.plan_to_torch(arrays, class_idx, dev)
+    _, args = lpc_lanes_inputs(t["rows"], t["coeffs"], t["shift"],
+                               t["order"], ci["fixed"], ci.get("lpc"))
+    kernel = LPC_ROWS_KERNEL[args[0].dtype]
+    got = lpc_reconstruct(*args)
+    diff.check(kernel, f"{what} fixed launch", got,
+               lpc_reconstruct_ref(*args))
+    n = len(plan.classes()["fixed"])
+    members = ci["fixed"][:n].long()
+    diff.check(kernel, f"{what} fixed lanes against fixed_integrate",
+               got[:, :n].t(), fixed_integrate(
+                   t["rows"][members], t["order"][members],
+                   t["seeds"][members]))
+    return n
+
+
+# The rows engine's synthetic fixed lanes: lpc on 16-bit samples and on
+# full-range int32 ones whose sums wrap, lpc64 on 24- and 33-bit ones.
+ROWS_FIXED_FORMS = ((np.int32, 16), (np.int32, 32), (np.int64, 24),
+                    (np.int64, 33))
+
+
+def rows_fixed_signal_checks(rng, t, diff: Diff) -> list:
+    """Seeded fixed lanes of orders 0-4 as a rows-engine plan's fixed
+    class (subframe-major rows, no coefficients, shift 0) through
+    lpc_lanes_inputs and lpc or lpc64 at B 4096 and FIXED_N lanes: equal
+    to the samples and to fixed_integrate_t on the card, bit for bit.
+    Returns a line a case."""
+    out = []
+    for dtype, bits in ROWS_FIXED_FORMS:
+        for n in FIXED_N:
+            samples, rows, seeds, order = fixed_signal_inputs(
+                rng, n, 4096, bits, dtype)
+            _, args = lpc_lanes_inputs(
+                t(rows.T), t(np.zeros((n, 32), np.int32)),
+                t(np.zeros(n, np.int32)), t(order),
+                t(np.arange(n, dtype=np.int32)), None)
+            kernel = LPC_ROWS_KERNEL[args[0].dtype]
+            got = lpc_reconstruct(*args)
+            what = f"rows fixed lanes, {bits}-bit samples, n={n}"
+            diff.check(kernel, f"{what} against the samples", got,
+                       t(samples))
+            diff.check(kernel, f"{what} against fixed_integrate_t", got,
+                       fixed_integrate_t(t(rows), t(order), t(seeds)))
+            out.append(f"{kernel} {bits}-bit [4096, {n}]")
+    return out
+
+
+def device_kernels(fn) -> Counter:
+    """The device kernels fn() runs, name -> launches, from one
+    torch.profiler pass."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return Counter(
+        e.name() for e in prof.profiler.kineto_results.events()
+        if str(e.device_type()).split(".")[-1] == "CUDA"
+        and not e.is_user_annotation())
+
+
+def scan_free(seen: Counter, where: str, kernel: str) -> str:
+    """Raises if `seen` (device_kernels) holds a kernel of torch.cumsum's
+    outer-dim scan, or no `kernel` (no device activity recorded).
+    Returns the kernels' short names with their counts."""
+    if (any("scan_outer_dim" in k for k in seen)
+            or not any(kernel in k for k in seen)):
+        raise AssertionError(f"{where}: device kernels {dict(seen)}")
+    short = Counter()
+    for k, n in seen.items():
+        short[re.sub(r"<.*", "", k.replace("void ", "")).split("::")[-1]] += n
+    return "; ".join(f"{k} x {n}" for k, n in sorted(short.items()))
+
+
 def scan_free_check(dev, chunks) -> str:
     """One torch.profiler pass over reconstruct_pack2 on each (name,
     Pack2Chunk): raises if a device kernel of torch.cumsum's outer-dim
     scan ran, or if the trace shows no lpc2 kernel (no device activity
     recorded). Returns the kernels seen, with their counts."""
-    from torch.profiler import ProfilerActivity, profile
     loaded = [(rt.chunk_to_torch(ck, dev),
                fmt.container_bits(ck.bits_per_sample)) for _, ck in chunks]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for (buf, geom), cb in loaded:
             rt.reconstruct_pack2(buf, geom, container_bits=cb)
-        torch.cuda.synchronize()
-    seen = Counter(
-        e.name() for e in prof.profiler.kineto_results.events()
-        if str(e.device_type()).split(".")[-1] == "CUDA"
-        and not e.is_user_annotation())
-    scans = [k for k in seen if "scan_outer_dim" in k]
-    if scans or not any("lpc2_kernel" in k for k in seen):
-        raise AssertionError(f"reconstruct_pack2 on "
-                             f"{[name for name, _ in chunks]}: device "
-                             f"kernels {dict(seen)}")
-    short = Counter()
-    for k, n in seen.items():
-        short[re.sub(r"<.*", "", k.replace("void ", "")).split("::")[-1]] += n
-    return "; ".join(f"{k} x {n}" for k, n in sorted(short.items()))
+    return scan_free(device_kernels(run), f"reconstruct_pack2 on "
+                     f"{[name for name, _ in chunks]}", "lpc2_kernel")
+
+
+def rows_scan_free_check(dev, plans) -> str:
+    """The same for the rows engine: one torch.profiler pass over
+    launch_plan (upload and reconstruct_core) on each (name, StreamPlan)
+    must show an lpc kernel and no outer-dim scan."""
+    staged = [rd.stage_plan(plan) for _, plan in plans]
+
+    def run():
+        for st in staged:
+            rd.launch_plan(st, dev)
+    return scan_free(device_kernels(run), f"launch_plan on "
+                     f"{[name for name, _ in plans]}", "lpc_kernel")
 
 
 def class_lpc_checks(diff: Diff, what: str, t: dict, lists: dict) -> dict:
@@ -2147,6 +2238,36 @@ def main() -> None:
         ("bench16 chunk", ins["bench16"]["ck"]),
         ("three_class_stream", three),
         ("fixed order 2", first_chunk(corpus["fixed order 2"][0]))])
+    # The rows engine's fixed class: seeded lanes at the bench block,
+    # the fixed launch of every plan checked below, and no torch.cumsum
+    # scan on the card (three_class_stream's fixed and lpc classes
+    # share a launch, "fixed order 2" has no lpc class).
+    rows_fixed_lines = rows_fixed_signal_checks(
+        np.random.default_rng(21), lambda a: torch.as_tensor(a, device=dev),
+        diff)
+    rows_fixed_seen = Counter()
+    for name, (data, _) in (*benches.items(), (ODD, odd), *corpus.items()):
+        rows_fixed_seen[name if name in BENCH or name == ODD
+                        else "corpus plans"] += rows_fixed_checks(
+            dev, diff, f"{name} rows plan", build_plan(data))
+    for name, plan in (("three_class_stream",
+                        build_plan(three_class_stream())),
+                       ("bench16 safe_lpc", build_plan(
+                           benches["bench16"][0]))):
+        if name.endswith("safe_lpc"):
+            plan.wide = plan.kind == 3
+        rows_fixed_seen[name] = rows_fixed_checks(
+            dev, diff, f"{name} rows plan", plan)
+    if (not rows_fixed_seen["corpus plans"]
+            or not rows_fixed_seen["three_class_stream"]):
+        raise AssertionError(f"no rows fixed lanes checked: "
+                             f"{dict(rows_fixed_seen)}")
+    rows_scan_free = rows_scan_free_check(dev, [
+        (name, build_plan(data)) for name, data in (
+            ("bench16", benches["bench16"][0]),
+            ("bench24", benches["bench24"][0]),
+            ("three_class_stream", three_class_stream()),
+            ("fixed order 2", corpus["fixed order 2"][0]))])
     rows_ins = {name: rows_lpc_checks(dev, diff, f"{name} rows plan",
                                       build_plan(data))
                 for name, (data, _) in benches.items()}
@@ -2208,6 +2329,14 @@ def main() -> None:
     say("kernels", f"reconstruct_pack2 on bench16's chunk, "
         f"three_class_stream and 'fixed order 2' under torch.profiler: no "
         f"outer-dim scan; device kernels {scan_free}")
+    say("kernels", f"rows engine: fixed lanes through lpc / lpc64 "
+        f"(lpc_lanes_inputs, shift 0) == the samples and "
+        f"fixed_integrate_t: {'; '.join(rows_fixed_lines)}; the plans' "
+        f"fixed launches (launch == plain, lanes == fixed_integrate), "
+        f"lanes checked: {dict(rows_fixed_seen)}; launch_plan on bench16, "
+        f"bench24, three_class_stream and 'fixed order 2' under "
+        f"torch.profiler: no outer-dim scan; device kernels "
+        f"{rows_scan_free}")
     say("kernels", f"rice16, rice16_flat and packtail bit-exact on seeded "
         f"inputs: {'; '.join(streamed)} (rice16 also with win and meta, "
         f"packtail with the stack, at an odd offset)")

@@ -9,8 +9,9 @@ time axis to a multiple of 8, sentinel-padded class lists of whole
 warp-blocks), uploads it (one pinned, non-blocking copy
 of one packed buffer for int32 streams; one such copy per array for
 int64 streams), reconstructs [F, B, C] PCM on the device
-(runtime/reconstruct.py: the lpc kernel at int32, lpc64 at int64) and
-copies it back for assembly on the host.
+(runtime/reconstruct.py: the lpc kernel at int32, lpc64 at int64,
+the fixed class as lanes of the lpc class's launch) and copies it back
+for assembly on the host.
 
 decode_pipelined and stream_decode overlap host indexing with device
 work through the ordinary asynchrony of one CUDA stream: uploads and
@@ -37,7 +38,7 @@ from ..plan import StreamPlan
 from ..result import DecodedFLAC, container_dtype
 from ..utils.log import get_logger
 from ..utils.profiler import maybe_trace
-from ..utils.timer import recording, span
+from ..utils.timer import count, recording, span
 from .device import (estimate_total_frames, resolve_device, upload,
                      verify_stream_md5)
 from .pack import Packer
@@ -118,7 +119,10 @@ class StagedPlan:
 
 def stage_plan(plan: StreamPlan) -> StagedPlan:
     """The host half of _run_reconstruct: pad the plan, and pack it
-    into one buffer when its rows are int32."""
+    into one buffer when its rows are int32. Counts `fixed_lanes`, the
+    plan's fixed subframes (all run as lanes of an lpc kernel launch,
+    reconstruct_core), in the open call."""
+    count("fixed_lanes", int(np.count_nonzero(plan.kind == fmt.SF_FIXED)))
     arrays, class_idx = pad_plan(plan)
     kw = dict(
         num_channels=plan.channels,
@@ -372,7 +376,10 @@ def decode(data: bytes, check_crc: bool = False, verify_md5: bool = True,
     `plan_convert_ms` with the C++ indexer), `reconstruct_ms`
     (`reconstruct_stage_ms`, `reconstruct_upload_ms`,
     `reconstruct_launch_ms`, `reconstruct_wait_ms`, `assemble_ms`) and
-    `finish_ms` (`finish_md5_ms`, `finish_normalize_ms`).
+    `finish_ms` (`finish_md5_ms`, `finish_normalize_ms`), and the fixed
+    class's counters: `fixed_lanes` (the plan's fixed subframes, run as
+    lanes of the lpc kernel) and `fixed_own_launches` (1 where they had
+    no lpc class to share a launch with).
     """
     if engine not in ENGINES:
         # A typo'd engine must not fall through to a default path.

@@ -60,14 +60,10 @@ from ..ops.rice16 import rice16_unpack_rows
 from ..result import DecodedFLAC, container_dtype
 from ..utils.profiler import maybe_trace
 from ..utils.timer import count, merge, recording, span
-from .reconstruct import decorrelate2
+from .reconstruct import FIXED_COEFFS, decorrelate2
 from .wide import join_i64, wrap_to
 
 _HIST = {"lpc8": 8, "lpc16": 16, "lpc32": 32}
-# The fixed predictors of orders 0-4 (RFC 9639 section 9.2.5) as LPC
-# coefficients: row k holds c_1..c_k of order k, s[t] = residual +
-# sum c_j s[t-j]. Exact in any wrapping sum, as the k-fold cumsum is.
-FIXED_COEFFS = ((), (1,), (2, -1), (3, -3, 1), (4, -6, 4, -1))
 LPC_KERNELS = {"lpc2": lpc2_reconstruct, "lpc2w": lpc2w_reconstruct,
                "lpc2w33": lpc2w33_reconstruct}
 _CONTAINER = {8: torch.int8, 16: torch.int16, 32: torch.int32}

@@ -5,10 +5,13 @@ Fixed-predictor integration and stereo decorrelation in the pack2
 time-major layout (counterparts of _fixed_integrate_t, of the
 decorrelation in zflac_tpu/runtime/device.py and of their 64-bit pair
 twins in zflac_tpu/runtime/wide.py), and the rows engine's core, which
-turns the dense plan arrays into PCM: const broadcast, verbatim, fixed
-cumsums and the LPC classes (the lpc kernel at int32, lpc64 at int64
-and for the widened `lpc_wide` class), then the wasted shift, the
-decorrelation and the container cast.
+turns the dense plan arrays into PCM: const broadcast, verbatim, the
+fixed and lpc classes in one launch of the lpc kernel (lpc64 on int64
+rows), the widened `lpc_wide` class in lpc64, then the wasted shift,
+the decorrelation and the container cast. A fixed predictor is an LPC
+predictor with shift 0 and constant coefficients (FIXED_COEFFS), so
+the core runs no cumsum; fixed_integrate and fixed_integrate_t, the
+JAX package's seeded cumsums, stay as the tests' reference.
 
 Everything runs in the dtype of its inputs: int32 on the int32 path,
 int64 on wide chunks and 17-32-bit streams, where the JAX package
@@ -19,13 +22,21 @@ not to a Pallas kernel.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import format as fmt
-from ..ops.lpc import clamp_shift, lpc_reconstruct
+from ..ops.lpc import HIST, clamp_shift, lpc_reconstruct
+from ..utils.timer import count
 from .pack import unpack
-from .scatter import gather_rows, scatter_rows
+from .scatter import gather_rows, put_rows_, row_index
 from .wide import wrap_to
+
+# The fixed predictors of orders 0-4 (RFC 9639 section 9.2.5) as LPC
+# coefficients: entry k holds c_1..c_k of order k, s[t] = residual +
+# sum c_j s[t-j]. Exact in any wrapping sum, as the k-fold cumsum is.
+FIXED_COEFFS = ((), (1,), (2, -1), (3, -3, 1), (4, -6, 4, -1))
 
 
 def fixed_integrate_t(rows_t, order, seeds_t):
@@ -96,17 +107,59 @@ def lpc_scan(rows, coeffs_rev, shift, order):
     return out
 
 
+@functools.cache
+def _fixed_coeffs_rev(device: torch.device):
+    """FIXED_COEFFS in the lpc kernel's layout as a constant [32, 5]
+    int32 table on `device`: column k the coefficients of order k, row
+    31 - j multiplying s[t-1-j]. Made once a device, so that no plan
+    pays a host-to-device copy for it."""
+    host = torch.zeros((HIST, len(FIXED_COEFFS)), dtype=torch.int32)
+    for k, coeffs in enumerate(FIXED_COEFFS):
+        host[HIST - k:, k] = torch.tensor(coeffs[::-1], dtype=torch.int32)
+    return host.to(device)
+
+
+def lpc_lanes_inputs(rows, coeffs_rev, shift, order, fixed_idx, lpc_idx):
+    """The lpc kernel's time-major arguments for one launch over the
+    fixed class's lanes (padded gather list fixed_idx) followed by the
+    lpc class's (lpc_idx); either list may be None. A fixed subframe of
+    order k is an LPC subframe with the coefficients FIXED_COEFFS[k] and
+    shift 0: the plan holds its raw warm-ups at t < order and its
+    residuals after, and its shift 0, so only its coefficients come from
+    elsewhere, the table by order (an order outside 0-4, which no
+    indexer writes, reads as the nearest). Returns (the joined gather
+    list, (rows [B, n], coeffs [32, n], shift [n], order [n]))."""
+    if fixed_idx is None:
+        idx = lpc_idx
+    elif lpc_idx is None:
+        idx = fixed_idx
+    else:
+        idx = torch.cat([fixed_idx, lpc_idx])
+    gi = row_index(idx, rows.shape[0])
+    order_g = order[gi]
+    n_fixed = 0 if fixed_idx is None else fixed_idx.shape[0]
+    coeffs = []
+    if fixed_idx is not None:
+        coeffs.append(_fixed_coeffs_rev(rows.device).index_select(
+            1, torch.clamp(order_g[:n_fixed], 0, len(FIXED_COEFFS) - 1)))
+    if lpc_idx is not None:
+        coeffs.append(coeffs_rev[gi[n_fixed:]].t())
+    coeffs_t = (torch.cat(coeffs, dim=1) if len(coeffs) > 1
+                else coeffs[0].contiguous())
+    rows_t = torch.index_select(rows.t(), 1, gi).contiguous()
+    return idx, (rows_t, coeffs_t, shift[gi], order_g)
+
+
 def lpc_class_inputs(rows, coeffs_rev, shift, order, idx, *,
                      widen: bool = False):
     """The lpc kernel's time-major arguments for the LPC class with
     padded gather list idx: (rows [B, n], coeffs [32, n], shift [n],
     order [n]), rows widened to int64 when `widen` (the lpc_wide
     class)."""
-    rows_g = gather_rows(rows, idx)
+    _, args = lpc_lanes_inputs(rows, coeffs_rev, shift, order, None, idx)
     if widen:
-        rows_g = rows_g.long()
-    return (rows_g.t().contiguous(), gather_rows(coeffs_rev, idx).t()
-            .contiguous(), gather_rows(shift, idx), gather_rows(order, idx))
+        args = (args[0].long(), *args[1:])
+    return args
 
 
 def reconstruct_core(rows, kind, order, wasted, shift, coeffs_rev,
@@ -115,44 +168,46 @@ def reconstruct_core(rows, kind, order, wasted, shift, coeffs_rev,
                      do_decorrelate: bool):
     """Plan tensors -> container-width PCM [F, B, C] (pre-normalization)
     on their device. rows [S, B] int32 or int64; class_idx: name ->
-    padded int32 gather list whose entries >= S are sentinels. kind is
-    not read (the class lists carry it), as in the JAX core."""
+    padded int32 gather list whose entries >= S are sentinels. kind and
+    fixed_seeds are not read: the class lists carry the kind, as in the
+    JAX core, and the fixed rows' warm-ups replace their seeds
+    (lpc_lanes_inputs). Counts `fixed_own_launches` in the open call (1
+    where the fixed class had no lpc class to share a launch with)."""
     S, B = rows.shape
     dtype = rows.dtype
-    signal = torch.zeros((S, B), dtype=dtype, device=rows.device)
+    # Every class writes in place into one canvas whose dead row S takes
+    # the sentinels' writes (scatter.py put_rows_), dropped at the shift.
+    signal = torch.zeros((S + 1, B), dtype=dtype, device=rows.device)
 
     idx = class_idx.get("const")
     if idx is not None:
         vals = gather_rows(rows, idx)[:, 0:1].expand(idx.shape[0], B)
-        signal = scatter_rows(signal, idx, vals)
+        put_rows_(signal, idx, vals)
 
     idx = class_idx.get("verbatim")
     if idx is not None:
-        signal = scatter_rows(signal, idx, gather_rows(rows, idx))
+        put_rows_(signal, idx, gather_rows(rows, idx))
 
-    idx = class_idx.get("fixed")
-    if idx is not None:
-        out = fixed_integrate(gather_rows(rows, idx), gather_rows(order, idx),
-                              gather_rows(fixed_seeds, idx))
-        signal = scatter_rows(signal, idx, out)
-
-    idx = class_idx.get("lpc")
-    if idx is not None:
-        out = lpc_reconstruct(*lpc_class_inputs(rows, coeffs_rev, shift,
-                                                order, idx)).t()
-        signal = scatter_rows(signal, idx, out)
+    # The fixed class runs as lanes of the lpc class's launch, or in a
+    # launch of its own where the plan has no lpc class.
+    fixed, lpc = class_idx.get("fixed"), class_idx.get("lpc")
+    if fixed is not None or lpc is not None:
+        idx, args = lpc_lanes_inputs(rows, coeffs_rev, shift, order, fixed,
+                                     lpc)
+        put_rows_(signal, idx, lpc_reconstruct(*args).t())
+        del args                # the gathered rows: not held to the end
+    count("fixed_own_launches", int(fixed is not None and lpc is None))
 
     idx = class_idx.get("lpc_wide")
     if idx is not None:
         # An int32 stream's class whose accumulator may pass 32 bits:
         # lpc64 (the reference's InterType widening, zflac.zig:314-319),
         # then back to the stream dtype with wraparound.
-        out = lpc_reconstruct(*lpc_class_inputs(
-            rows, coeffs_rev, shift, order, idx, widen=True)).t()
-        signal = scatter_rows(signal, idx, wrap_to(out, dtype))
+        put_rows_(signal, idx, wrap_to(lpc_reconstruct(*lpc_class_inputs(
+            rows, coeffs_rev, shift, order, idx, widen=True)).t(), dtype))
 
     # Wasted-bits shift (zflac.zig:447,459,495-496,538-539).
-    signal = signal << wasted.to(dtype)[:, None]
+    signal = signal[:S] << wasted.to(dtype)[:, None]
 
     F = S // num_channels
     frames = signal.view(F, num_channels, B)

@@ -17,14 +17,19 @@ from __future__ import annotations
 import torch
 
 
-def gather_rows(a, idx):
-    """a[idx] along dim 0 with XLA's gather rule: indices are clamped
-    into [0, a.shape[0] - 1] (negative ones first count from the end,
-    as jnp indexing reads them)."""
-    n = a.shape[0]
+def row_index(idx, n: int):
+    """idx as the int64 indices XLA's gather rule reads from n rows:
+    negative ones first count from the end, as jnp indexing reads
+    them, then all are clamped into [0, n - 1]. One index serves every
+    gather along rows of the same count."""
     idx = idx.long()
     idx = torch.where(idx < 0, idx + n, idx)
-    return a[torch.clamp(idx, 0, n - 1)]
+    return torch.clamp(idx, 0, n - 1)
+
+
+def gather_rows(a, idx):
+    """a[idx] along dim 0 with XLA's gather rule (row_index)."""
+    return a[row_index(idx, a.shape[0])]
 
 
 def scatter_rows(canvas, idx, updates):
@@ -33,8 +38,16 @@ def scatter_rows(canvas, idx, updates):
     a new tensor."""
     n = canvas.shape[0]
     padded = torch.cat([canvas, canvas.new_zeros((1, *canvas.shape[1:]))])
-    padded[torch.clamp(idx.long(), max=n)] = updates.to(canvas.dtype)
-    return padded[:n]
+    return put_rows_(padded, idx, updates)[:n]
+
+
+def put_rows_(padded, idx, updates):
+    """scatter_rows in place on a canvas that already holds the dead
+    row: padded has n + 1 rows, and entries of idx >= n write row n.
+    Returns padded."""
+    n = padded.shape[0] - 1
+    padded[torch.clamp(idx.long(), max=n)] = updates.to(padded.dtype)
+    return padded
 
 
 def scatter_flat(flat, idx, vals):
