@@ -58,7 +58,10 @@ build/zflac_tpu_torch/, then:
      bench24, bench32ms and bench16_track, each chunk in the geometry of
      its own scan
      (the LPC kernels in ns a step), summed per call against the summed
-     bound;
+     bound; then the same chunks of bench16 and bench16_track in the
+     JAX package's layout (one more host scan of each chunk's byte
+     range), every kernel held against its plain version and timed
+     there too;
   5. drives both main paths, each with the launch counters reset just
      before and read just after (each kernel of the path must have
      launched): decode_to_device on each bench stream and on
@@ -66,23 +69,17 @@ build/zflac_tpu_torch/, then:
      classes), and the rows engine, decode(engine="torch"), on each
      bench stream and bench16_513; checks the
      PCM against the encoder's input and the native C++ decoder, with
-     the stream MD5 verified, and prints each bench stream's chunk
-     geometries (F, Fp, lanes, class members and lanes), the lanes and
-     scan-buffer bytes one call uploads beside those of the JAX
-     package's layout (one more host scan, not uploaded) and the device
-     memory one call adds at its peak; then the same for every corpus
-     stream through both engines, bench16 in 256-frame chunks, and a
-     corrupted stream that must raise InvalidChecksum;
+     the stream MD5 verified, and each chunk tensor of decode_to_device
+     against the geometry [Fp, Bp, C] of its scan; then the same for
+     every corpus stream through both engines, bench16 in 256-frame
+     chunks, and a corrupted stream that must raise InvalidChecksum;
   6. runs the rows engine's other entry points on the card:
      decode_pipelined on bench16 (several chunks), stream_decode on
      bench24, decode_range on bench16 (three ranges) and decode_tolerant
      on a corrupted corpus stream (against the same call on the CPU);
-  7. times the device reconstruction of each bench chunk, the whole
-     decode_to_device call on bench16, bench24 and bench16_track, and
-     decode(engine=
-     "torch") on both and on bench16_513, end to end and in its phases,
-     with the bytes the rows engine stages for each of the three (its
-     rows, all it uploads) and its class lists' member counts and n;
+  7. times reconstruct_pack2 on each bench stream's whole-stream chunk
+     from a device buffer (CUDA events; end-to-end times are the
+     benchmark's, benchmark/run.py);
   8. faults: empty shapes (B == 0, n == 0, NGp == 0, Fp == 0) through
      every kernel wrapper on the card give the plain versions' empty
      results without a launch; a decode leaves the thread's current
@@ -104,10 +101,7 @@ build/zflac_tpu_torch/, then:
      graphs); reconstruct_sharded on each bench
      stream's rows plan against the single-device reconstruction
      (lpc / lpc64 counted, and held against the plain version on each
-     device's slice of the plan, in shard_plan's kernel shapes); then the
-     sharded decode of bench16 and bench24 over the mesh and over one
-     slot timed on the host clock (median of 5), in turns with
-     decode_to_device on one device, beside the time of step 7;
+     device's slice of the plan, in shard_plan's kernel shapes);
  10. longstream: decode_longstream of bench16 and bench24 in 4 shards
      (launches counted; lpc / lpc64 against the plain version on each
      shard's plan);
@@ -116,9 +110,9 @@ build/zflac_tpu_torch/, then:
      then ... longstream cuda:0), on bench16: both outputs must equal
      the encoder's input, the launch counts each worker prints must be
      those of its own chunk (each scanned once, in its own geometry) or
-     shard, and each pack2 worker's rescan_ms must read 0 (its scan_ms
-     and its chunk's geometry are printed); the kernels are held against
-     their plain versions on the two workers' chunks and plans;
+     shard (each pack2 worker's scan_ms and its chunk's geometry are
+     printed); the kernels are held against their plain versions on the
+     two workers' chunks and plans;
  12. cli: python3 -m zflac_tpu_torch.cli decode, verify and bench on
      bench16 as three processes at once (the WAV's payload must equal
      the encoder's input), and verify once more through cli.main in
@@ -156,13 +150,6 @@ build/zflac_tpu_torch/, then:
      packtail, lpc and lpc64 must each launch in the checks and in the
      decodes.
 
-With --compare-csrc CSRC (another checkout's zflac_tpu_torch/csrc, say
-the parent commit's, unpacked under build/), step 4 also builds that
-tree's rice16 and packtail (tools/kernel_ab.py) and times them beside
-this checkout's, from CUDA graphs and in turns, on each bench stream's
-whole-stream chunk and decode_to_device chunks, after checking that
-both give the same output.
-
 Any failure raises, and the exit code is then not 0. With no CUDA
 device it exits 1 before doing anything. The last lines are one JSON
 object with a record per kernel (launches on the main paths, max
@@ -181,7 +168,6 @@ import multiprocessing
 import os
 import re
 import socket
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -206,7 +192,7 @@ from zflac_tpu_torch.parallel.distributed import range_chunks
 from zflac_tpu_torch.parallel.longstream import (decode_longstream,
                                                  shard_index)
 from zflac_tpu_torch.parallel.shard import (decode_to_device_sharded,
-                                            local_arrays, shard_plan,
+                                            local_plan, shard_plan,
                                             sharded_chunk_frames,
                                             sharded_to_host)
 from zflac_tpu_torch.testing import make_corpus
@@ -222,12 +208,12 @@ from zflac_tpu_torch.ops.rice16 import (rice16_unpack, rice16_unpack_ref,
                                         rice16_unpack_rows_ref)
 from zflac_tpu_torch.runtime import decode as rd
 from zflac_tpu_torch.runtime import device as rt
+from zflac_tpu_torch.runtime.pack import unpack
 from zflac_tpu_torch.runtime.reconstruct import (fixed_integrate,
                                                 fixed_integrate_t,
-                                                lpc_class_inputs,
                                                 lpc_lanes_inputs)
 from zflac_tpu_torch.runtime.wide import join_i64
-from zflac_tpu_torch.tools import fuzz_native, kernel_ab, profile_pack2
+from zflac_tpu_torch.tools import fuzz_native, profile_pack2
 from zflac_tpu_torch.tools.kernel_inputs import packtail_inputs, rice_groups
 from zflac_tpu_torch.tools.kernel_sass import kernel_name
 from zflac_tpu_torch.tools.streams import (BENCH, BENCH_BLOCK, BY_BPS,
@@ -450,6 +436,14 @@ def fixed_signal_checks(rng, t, diff: Diff) -> list:
     return out
 
 
+def staged_tensors(staged, dev) -> tuple:
+    """A staged rows-engine plan (rd.StagedPlan) on `dev` in one upload,
+    as launch_plan uploads it: (its arrays by name, its padded class
+    lists by name), views of the one buffer."""
+    t = unpack(rt.upload(staged.buf, dev), staged.spec)
+    return t, {n: t["ci_" + n] for n in staged.class_names}
+
+
 def rows_fixed_checks(dev, diff: Diff, what: str, plan) -> int:
     """The rows engine's launch that holds a plan's fixed class
     (reconstruct_core: the fixed lanes, then the lpc class's where the
@@ -457,10 +451,9 @@ def rows_fixed_checks(dev, diff: Diff, what: str, plan) -> int:
     plain version, and its fixed lanes against fixed_integrate, the
     seeded cumsums the JAX package runs, on the card. Returns the fixed
     lanes checked (0 for a plan without a fixed class)."""
-    arrays, class_idx = rd.pad_plan(plan)
-    if "fixed" not in class_idx:
+    t, ci = staged_tensors(rd.stage_plan(plan), dev)
+    if "fixed" not in ci:
         return 0
-    t, ci = rd.plan_to_torch(arrays, class_idx, dev)
     _, args = lpc_lanes_inputs(t["rows"], t["coeffs"], t["shift"],
                                t["order"], ci["fixed"], ci.get("lpc"))
     kernel = LPC_ROWS_KERNEL[args[0].dtype]
@@ -469,10 +462,10 @@ def rows_fixed_checks(dev, diff: Diff, what: str, plan) -> int:
                lpc_reconstruct_ref(*args))
     n = len(plan.classes()["fixed"])
     members = ci["fixed"][:n].long()
+    seeds = torch.as_tensor(plan.fixed_seeds, device=dev)[members]
     diff.check(kernel, f"{what} fixed lanes against fixed_integrate",
                got[:, :n].t(), fixed_integrate(
-                   t["rows"][members], t["order"][members],
-                   t["seeds"][members]))
+                   t["rows"][members], t["order"][members], seeds))
     return n
 
 
@@ -572,8 +565,10 @@ def class_lpc_checks(diff: Diff, what: str, t: dict, lists: dict) -> dict:
     arguments."""
     out = {}
     for name, idx in lists.items():
-        args = lpc_class_inputs(t["rows"], t["coeffs"], t["shift"],
-                                t["order"], idx, widen=name == "lpc_wide")
+        _, args = lpc_lanes_inputs(t["rows"], t["coeffs"], t["shift"],
+                                   t["order"], None, idx)
+        if name == "lpc_wide":
+            args = (args[0].long(), *args[1:])
         diff.check(LPC_ROWS_KERNEL[args[0].dtype], f"{what} {name}",
                    lpc_reconstruct(*args), lpc_reconstruct_ref(*args))
         out[name] = args
@@ -583,11 +578,10 @@ def class_lpc_checks(diff: Diff, what: str, t: dict, lists: dict) -> dict:
 def rows_lpc_checks(dev, diff: Diff, what: str, plan,
                     safe_lpc: bool = False) -> dict:
     """class_lpc_checks on the LPC classes of a rows-engine plan,
-    padded and uploaded as _run_reconstruct does it."""
+    staged and uploaded as _run_reconstruct does it."""
     if safe_lpc:
         plan.wide = plan.kind == 3
-    arrays, class_idx = rd.pad_plan(plan)
-    t, ci = rd.plan_to_torch(arrays, class_idx, dev)
+    t, ci = staged_tensors(rd.stage_plan(plan), dev)
     return class_lpc_checks(diff, what, t, {
         name: ci[name] for name in ("lpc", "lpc_wide") if name in ci})
 
@@ -752,8 +746,9 @@ def class_pad_checks(rng, t, diff: Diff) -> list:
             idx = np.full(-(-count // rd.CLASS_GROUP) * rd.CLASS_GROUP, S,
                           np.int32)
             idx[:count] = members
-            args = lpc_class_inputs(*(t(spread(a)) for a in
-                                      (rows.T, cf.T, shift, order)), t(idx))
+            _, args = lpc_lanes_inputs(*(t(spread(a)) for a in
+                                         (rows.T, cf.T, shift, order)),
+                                       None, t(idx))
             n = args[0].shape[1]
             if args[0].stride(0) % 4 or args[0].data_ptr() % 16:
                 raise AssertionError(f"{name}: a class of {count} members "
@@ -943,58 +938,6 @@ def path_times(name: str, chunks, line: str) -> None:
             f"CUDA events) on {line}")
 
 
-def compare_phase(csrc: str, ins: dict, path_ins: dict, line: str) -> None:
-    """rice16 and packtail of another source tree (csrc, built by
-    tools/kernel_ab.py) against this checkout's, on each bench stream's
-    whole-stream chunk and on each chunk its decode_to_device
-    reconstructs: equal outputs, then both timed from CUDA graphs in
-    turns (other, this, this, other), and summed over each call's
-    chunks against the summed bound."""
-    lib = kernel_ab.load(csrc, os.path.join(_kernels.BUILD_DIR, "compare"))
-    sums = {}
-    for name in BENCH:
-        for what, d in (("whole-stream chunk", ins[name]),
-                        *((f"chunk {i}", c)
-                          for i, c in enumerate(path_ins[name]))):
-            g = d["geom"]
-            pairs = {"rice16": (
-                lambda d=d, g=g: kernel_ab.rice16(lib, d["win"], d["meta"],
-                                                  g.Ssort),
-                lambda d=d, g=g: rice16_unpack_rows(d["win"], d["meta"],
-                                                    Ssort=g.Ssort),
-                (d["win"], d["meta"]))}
-            if g.C == 2 and d["cb"] in (8, 16):
-                kw = dict(Fp=g.Fp, container_bits=d["cb"])
-                pairs["packtail"] = (
-                    lambda d=d, kw=kw: kernel_ab.packtail(
-                        lib, d["stack"], *d["tail"], **kw),
-                    lambda d=d, kw=kw: packtail(d["stack"], *d["tail"], **kw),
-                    (d["stack"], *d["tail"]))
-            for kernel, (other, this, inputs) in pairs.items():
-                got, want = this(), other()
-                if not torch.equal(got, want):
-                    raise AssertionError(f"{kernel} on {name} {what}: this "
-                                         f"build differs from {csrc}'s")
-                t = [graph_ms(f) for f in (other, this, this, other)]
-                b_ms, _ = bound(kernel, inputs, got)
-                say("compare", f"{kernel} on {name} {what}: {csrc}'s "
-                    f"{t[0]:.4f} / {t[3]:.4f} ms, this checkout's "
-                    f"{t[1]:.4f} / {t[2]:.4f} ms (in turns, median of {REPS} "
-                    f"graph replays each, CUDA events), bound {b_ms:.4f} ms, "
-                    f"outputs equal; on {line}")
-                if what.startswith("chunk"):
-                    acc = sums.setdefault((name, kernel), [0.0, 0.0, 0.0, 0])
-                    acc[0] += (t[0] + t[3]) / 2
-                    acc[1] += (t[1] + t[2]) / 2
-                    acc[2] += b_ms
-                    acc[3] += 1
-    for (name, kernel), (o, n, b, k) in sums.items():
-        say("compare", f"{kernel} on {name}'s {k} decode_to_device chunks, "
-            f"summed a call (mean of the two turns): {csrc}'s {o:.4f} ms, "
-            f"this checkout's {n:.4f} ms, bound {b:.4f} ms "
-            f"({100 * b / o:.1f} % / {100 * b / n:.1f} % of it); on {line}")
-
-
 def hist32_inputs(dev) -> dict:
     """Seeded order-32 inputs at the bench widths, for the redesigned
     kernels at hist 32: lpc2w33 at bench32ms's class width, lpc at
@@ -1064,33 +1007,6 @@ def decode_check(what: str, data: bytes, want: np.ndarray,
     return dd
 
 
-def e2e_times(data: bytes, n_samples: int, line: str, what: str) -> float:
-    """decode_to_device end to end on `data`, synchronized, median of
-    5 on the host clock, with its phase medians. Returns the median."""
-    walls, phases = [], []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        a = time.perf_counter()
-        dd = zflac_tpu_torch.decode_to_device(data, device="cuda")
-        b = time.perf_counter()
-        dd.synchronize()
-        c = time.perf_counter()
-        walls.append((c - a) * 1e3)
-        phases.append(dict(dd.stats, wait_ms=(c - b) * 1e3))
-    med = {k: statistics.median(p[k] for p in phases)
-           for k in ("scan_ms", "rescan_ms", "enqueue_ms", "wait_ms")}
-    e2e = statistics.median(walls)
-    say("times", f"{what}: decode_to_device end to end (scan + H2D + "
-        f"device, synchronized): {e2e:.3f} ms = "
-        f"{n_samples / e2e / 1e3:.1f} Msamples/s, median of 5, host "
-        f"clock, {phases[0]['chunks']} chunks, {os.cpu_count()} host "
-        f"cores; phase medians (host clock) scan {med['scan_ms']:.3f} ms, "
-        f"re-scan {med['rescan_ms']:.3f} ms, upload + kernel "
-        f"queueing {med['enqueue_ms']:.3f} ms, then waiting for the "
-        f"device {med['wait_ms']:.3f} ms; on {line}")
-    return e2e
-
-
 def jax_chunks(data: bytes, cks) -> list:
     """The same chunks in the JAX package's layout ("jax"), as the port
     scanned them before the card layout: each chunk's byte range
@@ -1114,27 +1030,13 @@ def jax_chunks(data: bytes, cks) -> list:
 
 def layout_times(dev, diff: Diff, name: str, data: bytes, card: list,
                  line: str) -> None:
-    """decode_to_device's chunks of `name` in both layouts, on the same
-    byte ranges: the JAX-layout chunks (jax_chunks) with every kernel
-    held against its plain version, path_times' kernel sums on them,
-    and reconstruct_pack2 summed over the chunks of each layout (CUDA
-    graphs, in turns: card, JAX, JAX, card). `card` is kernel_checks'
-    dicts of the card-layout chunks."""
+    """decode_to_device's chunks of `name` in the JAX package's layout,
+    on the card-layout chunks' byte ranges (jax_chunks): every kernel
+    held against its plain version, and path_times' kernel sums on
+    them. `card` is kernel_checks' dicts of the card-layout chunks."""
     jax = [kernel_checks(dev, diff, f"{name} JAX-layout chunk {i}", ck)
            for i, ck in enumerate(jax_chunks(data, [d["ck"] for d in card]))]
     path_times(f"{name} (JAX layout)", jax, line)
-
-    def summed(ins):
-        return sum(graph_ms(lambda d=d: rt.reconstruct_pack2(
-            d["buf"], d["geom"], container_bits=d["cb"])) for d in ins)
-
-    t = [summed(ins) for ins in (card, jax, jax, card)]
-    say("times", f"{name}: reconstruct_pack2 on its {len(card)} "
-        f"decode_to_device chunks, summed a call (median of {REPS} graph "
-        f"replays each, CUDA events, in turns): card layout "
-        f"{t[0]:.4f} / {t[3]:.4f} ms ({sum(d['ck'].Ssort for d in card)} "
-        f"lanes), JAX layout {t[1]:.4f} / {t[2]:.4f} ms "
-        f"({sum(d['ck'].Ssort for d in jax)} lanes); on {line}")
 
 
 def peak_bytes(fn) -> tuple:
@@ -1149,37 +1051,15 @@ def peak_bytes(fn) -> tuple:
     return res, torch.cuda.max_memory_allocated() - base
 
 
-def path_memory(name: str, data: bytes, line: str) -> None:
-    """The chunks decode_to_device reconstructs for a bench stream:
-    each chunk's geometry, the lanes (Ssort summed over the chunks) and
-    the bytes of scan buffers one call uploads, beside what the same
-    chunks would upload in the JAX package's layout (jax_chunks), and
-    the device memory one call adds at its peak (max_memory_allocated
-    after reset_peak_memory_stats, less what was allocated before),
-    beside the PCM it keeps."""
-    br = BitReader(data)
-    cks = rt.stream_chunks(data, parse_metadata(br), br.pos // 8)
-    uploaded = sum(ck.device_buf.nbytes for ck in cks)
-    lanes = sum(ck.Ssort for ck in cks)
-    jax = jax_chunks(data, cks)
-    itemsize = fmt.container_bits(cks[0].bits_per_sample) // 8
-    j_bytes = sum(j.device_buf.nbytes for j in jax)
-    j_lanes = sum(j.Ssort for j in jax)
-    j_pcm = sum(j.Fp * j.Bp * j.C * itemsize for j in jax)
-    dd, peak = peak_bytes(lambda: zflac_tpu_torch.decode_to_device(
-        data, device="cuda"))
-    kept = sum(t.numel() * t.element_size() for t in dd.chunks)
-    if [tuple(t.shape) for t in dd.chunks] != [(ck.Fp, ck.Bp, ck.C)
-                                               for ck in cks]:
-        raise AssertionError(f"{name}: decode_to_device's chunk shapes "
-                             "differ from its scan's geometries")
-    say("slice", f"{name}: decode_to_device reconstructs {len(cks)} chunks "
-        f"in their own geometries, card layout ({geoms_line(cks)}); "
-        f"{lanes} lanes; one call uploads {uploaded} B of scan buffers "
-        f"(the JAX package's layout: {j_lanes} lanes, {j_bytes} B, PCM "
-        f"{j_pcm} B, from one more host scan) and "
-        f"adds {peak} B ({peak / 2**20:.3f} MiB) of device memory at its "
-        f"peak, of which it keeps {kept} B of PCM; on {line}")
+def same_shapes(name: str, dd, path: list) -> None:
+    """decode_to_device's chunk tensors must have the shapes [Fp, Bp, C]
+    of its scan's chunks (`path`: kernel_checks' dicts of the same
+    stream's stream_chunks)."""
+    got = [tuple(t.shape) for t in dd.chunks]
+    want = [(d["ck"].Fp, d["ck"].Bp, d["ck"].C) for d in path]
+    if got != want:
+        raise AssertionError(f"{name}: decode_to_device's chunk shapes {got} "
+                             f"differ from its scan's geometries {want}")
 
 
 def native_pcm(data: bytes) -> np.ndarray:
@@ -1250,72 +1130,6 @@ def rows_entry_points(benches: dict, corpus: dict) -> None:
                              f"{ref.stats}")
     say("rows", f"decode_tolerant on 'lpc order 8' with frame 2 "
         f"corrupted: {got.stats}, PCM equal to the same call on the CPU")
-
-
-def rows_times(data: bytes, n_samples: int, line: str, what: str) -> None:
-    """decode(engine="torch") end to end on `data`, median of 5 on the
-    host clock; then its phases, median of 5, from a phased run of the
-    same steps (runtime/decode.py) with a synchronize after the
-    launches."""
-    walls = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        a = time.perf_counter()
-        zflac_tpu_torch.decode(data, engine="torch", device="cuda")
-        walls.append((time.perf_counter() - a) * 1e3)
-    names = ("plan build", "padding and packing", "H2D + enqueue",
-             "device wait", "D2H + assembly", "MD5 + normalization")
-    phases = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        ts = [time.perf_counter()]
-        plan = build_plan(data)
-        ts.append(time.perf_counter())
-        staged = rd.stage_plan(plan)
-        ts.append(time.perf_counter())
-        pcm = rd.launch_plan(staged, "cuda")
-        ts.append(time.perf_counter())
-        torch.cuda.synchronize()
-        ts.append(time.perf_counter())
-        out = rd._assemble(plan, pcm[:plan.num_frames].cpu().numpy())
-        ts.append(time.perf_counter())
-        rd._finish(out, plan.info.bits_per_sample, plan.info.md5, True)
-        ts.append(time.perf_counter())
-        phases.append([(b - a) * 1e3 for a, b in zip(ts, ts[1:])])
-    med = [statistics.median(p[i] for p in phases)
-           for i in range(len(names))]
-    e2e = statistics.median(walls)
-    say("times", f"{what}: decode(engine=\"torch\") end to end (host "
-        f"PCM, MD5 verified): {e2e:.3f} ms = "
-        f"{n_samples / e2e / 1e3:.1f} Msamples/s, median of 5, host "
-        f"clock, {os.cpu_count()} host cores; phase medians (host clock, "
-        f"phased run) " + ", ".join(
-            f"{n} {m:.3f} ms" for n, m in zip(names, med))
-        + f" (sum {sum(med):.3f} ms); on {line}")
-
-
-def staged_line(name: str, data: bytes, line: str) -> None:
-    """What the rows engine stages for one decode of `data`: the bytes
-    of its plan rows, of everything uploaded (the packed buffer of an
-    int32 stream, else pad_plan's arrays and class lists), and each
-    class list's length."""
-    plan = build_plan(data)
-    staged = rd.stage_plan(plan)
-    arrays, class_idx = rd.pad_plan(plan)
-    if staged.buf is not None:
-        total, how = staged.buf.nbytes, "one packed buffer"
-    else:
-        total, how = sum(a.nbytes for a in (*arrays.values(),
-                                            *class_idx.values())), \
-            "one copy an array"
-    S = plan.num_subframes
-    lists = ", ".join(f"{k} {np.count_nonzero(v < S)} members -> n "
-                      f"{len(v)}" for k, v in class_idx.items())
-    say("rows", f"{name}: decode(engine=\"torch\") stages rows "
-        f"{list(arrays['rows'].shape)} {arrays['rows'].dtype} = "
-        f"{arrays['rows'].nbytes} B and uploads {total} B in all ({how}); "
-        f"{plan.num_frames} frames, {S} subframes; class lists {lists}; "
-        f"on {line}")
 
 
 # ---------------------------------------------------------------------
@@ -1494,9 +1308,7 @@ def sharded_geometry(dev, name: str, data: bytes, mesh, where: str,
     chunks in their own card geometry: the PCM bytes it keeps, the
     device memory it adds at its peak, and reconstruct_pack2 summed over
     the call's chunks (CUDA graphs timed with CUDA events). One card
-    only: the memory counters are the current card's. The JAX
-    function's slot shape is measured against it by tools/ab_e2e.py
-    against the tree before the change, not here."""
+    only: the memory counters are the current card's."""
     (out, meta), peak = peak_bytes(
         lambda: decode_to_device_sharded(data, mesh))
     kept = sum(t.numel() * t.element_size() for rnd in out for t in rnd)
@@ -1555,8 +1367,8 @@ def geoms_line(cks) -> str:
     return "; ".join(f"{n} x ({text})" for text, n in seen.items())
 
 
-def sharded_phase(diff: Diff, benches: dict, mesh, single_ms: dict,
-                  line: str, launches: dict) -> None:
+def sharded_phase(diff: Diff, benches: dict, mesh, line: str,
+                  launches: dict) -> None:
     D = len(mesh)
     where = (f"{D} cards" if len(set(mesh)) > 1
              else f"{D} slots on {mesh[0]}")
@@ -1612,18 +1424,18 @@ def sharded_phase(diff: Diff, benches: dict, mesh, single_ms: dict,
         if total != F_loc * D * pcm.shape[1]:
             raise AssertionError(f"reconstruct_sharded on {name}: total "
                                  f"{total}")
-        # lpc / lpc64 on each device's slice as _local_reconstruct gets
-        # it: a share of the lanes, class lists sentinel-padded to a
-        # multiple of 32, rows [S_loc, B8] (shard_plan's shapes).
+        # lpc / lpc64 on each device's slice as reconstruct_sharded
+        # uploads it: a share of the lanes, class lists sentinel-padded
+        # to a multiple of 32, rows [S_loc, B8] (shard_plan's shapes).
         arrays, smeta = shard_plan(plan, D)
+        cb = fmt.container_bits(plan.info.bits_per_sample)
         shapes = set()
         for d, device in enumerate(mesh):
-            t = local_arrays(arrays, smeta, d, device)
+            t, ci = staged_tensors(local_plan(arrays, smeta, d, cb), device)
             for args in class_lpc_checks(
                     diff, f"{name} reconstruct_sharded device {d}", t,
-                    {cls: t[key] for key, cls in (("idx_lpc", "lpc"),
-                                                  ("idx_lpc_wide", "lpc_wide"))
-                     if key in t}).values():
+                    {n: ci[n] for n in ("lpc", "lpc_wide")
+                     if n in ci}).values():
                 shapes.add(f"{list(args[0].shape)} {args[0].dtype}")
         say("sharded", f"{name}: reconstruct_sharded of the rows plan over "
             f"{where} == _run_reconstruct on one device, PCM "
@@ -1632,35 +1444,6 @@ def sharded_phase(diff: Diff, benches: dict, mesh, single_ms: dict,
             f"{sorted(shapes)}")
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
-
-    # Host-clock times drift over a run, so the calls alternate.
-    for name in ("bench16", "bench24"):
-        data = benches[name][0]
-        walls, ones, singles = [], [], []
-        for _ in range(5):
-            for m, runs in ((mesh, walls), (one, ones)):
-                sync_mesh(m)
-                a = time.perf_counter()
-                decode_to_device_sharded(data, m)
-                sync_mesh(m)
-                runs.append((time.perf_counter() - a) * 1e3)
-            b = time.perf_counter()
-            zflac_tpu_torch.decode_to_device(data, device=mesh[0]
-                                             ).synchronize()
-            singles.append((time.perf_counter() - b) * 1e3)
-        med = statistics.median(walls)
-        say("times", f"{name}: decode_to_device_sharded over {where} end "
-            f"to end (scan + H2D + device, synchronized): {med:.3f} ms = "
-            f"{BENCH[name][0] * 2 / med / 1e3:.1f} Msamples/s, median of "
-            f"5, host clock (runs {', '.join(f'{w:.3f}' for w in walls)}); "
-            f"over 1 slot on cuda:0 {statistics.median(ones):.3f} ms (runs "
-            f"{', '.join(f'{w:.3f}' for w in ones)}); decode_to_device on "
-            f"{mesh[0]}, each run just after those: "
-            f"{statistics.median(singles):.3f} ms (runs "
-            f"{', '.join(f'{w:.3f}' for w in singles)}), and earlier in "
-            f"this run: {single_ms[name]:.3f} ms; "
-            f"{torch.cuda.device_count()} card(s) on the host, "
-            f"{os.cpu_count()} host cores; on {line}")
 
 
 def shard_lpc_checks(diff: Diff, what: str, data: bytes, num_shards: int,
@@ -1675,7 +1458,7 @@ def shard_lpc_checks(diff: Diff, what: str, data: bytes, num_shards: int,
                                      f"{what} shard {h}", plan).values()]
 
 
-def longstream_phase(diff: Diff, benches: dict, mesh, line: str,
+def longstream_phase(diff: Diff, benches: dict, mesh,
                      launches: dict) -> None:
     for name in ("bench16", "bench24"):
         data, want = benches[name]
@@ -1688,17 +1471,10 @@ def longstream_phase(diff: Diff, benches: dict, mesh, line: str,
                 got != {ROWS_PATH[name][0]: r.stats["shards"]}:
             raise AssertionError(f"decode_longstream on {name}: "
                                  f"{r.stats}, launches {got}, or PCM differs")
-        walls = []
-        for _ in range(3):
-            a = time.perf_counter()
-            decode_longstream(data, 4, mesh)
-            walls.append((time.perf_counter() - a) * 1e3)
         say("longstream", f"{name}: decode_longstream in 4 shards over "
             f"{len(mesh)} mesh slots (MD5 verified) == encoder input; "
             f"{r.stats}; kernel launches {got}; {ROWS_PATH[name][0]} == its "
-            f"plain version on each shard's plan, rows {shapes}; "
-            f"{statistics.median(walls):.3f} ms end to end (host PCM), "
-            f"median of 3, host clock; on {line}")
+            f"plain version on each shard's plan, rows {shapes}")
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
 
@@ -1738,10 +1514,9 @@ def distributed_phase(diff: Diff, data: bytes, want: np.ndarray, tmp: str,
     """Two worker processes sharing one card decode bench16 together,
     through the pack2 path and through the long-stream path; each
     prints its stats and launch counts, which must be those of its one
-    chunk, in that chunk's own geometry (or of its one shard), with a
-    re-scan time of 0. Before that, each kernel is held against its
-    plain version here on the chunks and shard plans the workers
-    make."""
+    chunk, in that chunk's own geometry (or of its one shard). Before
+    that, each kernel is held against its plain version here on the
+    chunks and shard plans the workers make."""
     dev = torch.device(CARD)
     # Outside any process group, two local ranges are the two workers'
     # ranges, each scanned as its worker scans it.
@@ -1786,17 +1561,15 @@ def distributed_phase(diff: Diff, data: bytes, want: np.ndarray, tmp: str,
         if not all(st["engine"] == f"{engine}-distributed" and
                    st["processes"] == 2 for st in stats):
             raise AssertionError(f"distributed {engine}: {lasts}")
-        if engine == "pack2" and any(st["rescan_ms"] != 0 for st in stats):
-            raise AssertionError(f"distributed pack2 re-scanned: {stats}")
         if counts != expect[engine]:
             raise AssertionError(f"distributed {engine}: the workers "
                                  f"launched {counts}, expected "
                                  f"{expect[engine]}")
         each = "; ".join(
             f"process {r}: launches {c}" + (
-                f", scan_ms {st['scan_ms']:.3f} (host clock), rescan_ms "
-                f"{st['rescan_ms']}, its chunk Fp {geoms[r].Fp}, Ssort "
-                f"{geoms[r].Ssort}, classes {geoms[r].classes}"
+                f", scan_ms {st['scan_ms']:.3f} (host clock), its chunk "
+                f"Fp {geoms[r].Fp}, Ssort {geoms[r].Ssort}, classes "
+                f"{geoms[r].classes}"
                 if engine == "pack2" else "")
             for r, (st, c) in enumerate(zip(stats, counts)))
         say("distributed", f"bench16, {engine}: 2 processes on {CARD} over "
@@ -2118,11 +1891,8 @@ def vectors_phase(dev, diff: Diff, tmp: str, launches: dict) -> None:
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--compare-csrc", metavar="CSRC",
-                    help="also time another source tree's rice16 and "
-                    "packtail beside this checkout's (compare_phase)")
-    args = ap.parse_args()
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]
+                            ).parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         sys.exit(1)
@@ -2408,8 +2178,6 @@ def main() -> None:
     for name, data in (("bench16", benches["bench16"][0]),
                        (TRACK, track[0])):
         layout_times(dev, diff, name, data, path_ins[name], line)
-    if args.compare_csrc:
-        compare_phase(args.compare_csrc, ins, path_ins, line)
 
     # ---- the main path, counted: each bench stream's own run ----
     launches = {}
@@ -2428,7 +2196,7 @@ def main() -> None:
                                  f"path: {missing}")
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
-        path_memory(name, data, line)
+        same_shapes(name, dd, path_ins[name])
     _kernels.launches.clear()
     dd = decode_check(TRACK, *track)
     torch.cuda.synchronize()
@@ -2442,7 +2210,7 @@ def main() -> None:
         raise AssertionError(f"{TRACK}: launches {got}, expected {expect}")
     for k, v in got.items():
         launches[k] = launches.get(k, 0) + v
-    path_memory(TRACK, track[0], line)
+    same_shapes(TRACK, dd, path_ins[TRACK])
 
     # ---- the rows engine's main path, counted per bench stream and on
     # bench16_513 ----
@@ -2498,24 +2266,14 @@ def main() -> None:
             f"device buffer: {rec_ms:.4f} ms = "
             f"{n_samples / rec_ms / 1e3:.1f} Msamples/s (both channels; "
             f"per call, median of {REPS} batches, CUDA events) on {line}")
-    single_ms = {name: e2e_times(benches[name][0], BENCH[name][0] * 2,
-                                 line, name)
-                 for name in ("bench16", "bench24")}
-    e2e_times(track[0], TRACK_SAMPLES * 2, line, TRACK)
-    for name in ("bench16", "bench24"):
-        rows_times(benches[name][0], BENCH[name][0] * 2, line, name)
-    rows_times(odd[0], ODD_SAMPLES * 2, line, ODD)
-    for name, data in (("bench16", benches["bench16"][0]),
-                       ("bench24", benches["bench24"][0]), (ODD, odd[0])):
-        staged_line(name, data, line)
 
     # ---- the faults repaired; the multi-device, multi-process and
     # command-line paths ----
     faults_phase(dev, benches)
     mesh = make_mesh() if torch.cuda.device_count() > 1 \
         else make_mesh(["cuda:0"] * 4)
-    sharded_phase(diff, benches, mesh, single_ms, line, launches)
-    longstream_phase(diff, benches, mesh, line, launches)
+    sharded_phase(diff, benches, mesh, line, launches)
+    longstream_phase(diff, benches, mesh, launches)
     os.makedirs(_kernels.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_kernels.BUILD_DIR) as tmp:
         distributed_phase(diff, *benches["bench16"], tmp, line)

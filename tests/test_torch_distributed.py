@@ -288,7 +288,7 @@ def test_world_of_one(monkeypatch):
     assert len(calls) == 3
     assert not [k for kw in calls for k in kw if k.startswith("force_")]
     stats = dict(r.stats)
-    assert stats.pop("scan_ms") > 0 and stats.pop("rescan_ms") == 0
+    assert stats.pop("scan_ms") > 0 and "rescan_ms" not in stats
     parse, emit = stats.pop("scan_parse_ms"), stats.pop("scan_emit_ms")
     assert parse > 0 and emit > 0
     assert stats == {"shards": 3, "processes": 1, "frames": frames,

@@ -29,7 +29,10 @@ from zflac_tpu_torch.ops.lpc2w import (  # noqa: E402
 )
 from zflac_tpu_torch.oracle import parse_metadata  # noqa: E402
 from zflac_tpu_torch.runtime import device as rt  # noqa: E402
-from zflac_tpu_torch.runtime.reconstruct import fixed_integrate_t  # noqa: E402
+from zflac_tpu_torch.runtime.reconstruct import (  # noqa: E402
+    FIXED_COEFFS,
+    fixed_integrate_t,
+)
 from zflac_tpu_torch.runtime.wide import join_i64  # noqa: E402
 from zflac_tpu_torch.testing import correlated_stereo, tone_mix  # noqa: E402
 
@@ -77,7 +80,7 @@ def test_fixed_coeffs_through_lpc_kernels_match_cumsums(form, orders):
     order_t = torch.from_numpy(order)
     cfwd = rt.fixed_cfwd(order_t)
     assert cfwd.shape == (8, n) and cfwd.dtype == torch.int32
-    for k, coeffs in enumerate(rt.FIXED_COEFFS):
+    for k, coeffs in enumerate(FIXED_COEFFS):
         col = np.zeros(8, dtype=np.int32)
         col[:k] = coeffs
         np.testing.assert_array_equal(cfwd[:, order == k].numpy(),

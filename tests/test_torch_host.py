@@ -33,7 +33,7 @@ from zflac_tpu_torch.index import native_indexer as ni  # noqa: E402
 from zflac_tpu_torch.oracle import parse_metadata  # noqa: E402
 from zflac_tpu_torch.runtime import device as rt  # noqa: E402
 
-from torch_slice import ALL_STREAMS  # noqa: E402
+from torch_slice import ALL_STREAMS, class_caps  # noqa: E402
 from torch_slice import assert_deep_equal as _assert_equal  # noqa: E402
 
 pytestmark = pytest.mark.skipif(
@@ -179,7 +179,7 @@ def test_pack2_bench_like_chunks_match(bps, mode):
     chunks = rt.scan_pack2_chunks(data, br.pos // 8, info, 4, 4096, False,
                                   workers=3)
     assert len(chunks) >= 3
-    cnp, pnp, wide = rt.class_caps([ck for _, ck in chunks])
+    cnp, pnp, wide = class_caps([ck for _, ck in chunks])
     for a, ck in chunks:
         kw = dict(max_frames=4, force_fp=4, force_bp=4096)
         assert _pack2_pair(data, a, ck.landed, info, **kw) is not None

@@ -37,7 +37,13 @@ from zflac_tpu_torch.index import build_plan, build_plan_py  # noqa: E402
 from zflac_tpu_torch.parallel import make_mesh, reconstruct_sharded  # noqa: E402
 from zflac_tpu_torch.parallel import shard as pshard  # noqa: E402
 from zflac_tpu_torch.runtime import reconstruct as trec  # noqa: E402
-from zflac_tpu_torch.runtime.decode import pad_plan, plan_to_torch  # noqa: E402
+from zflac_tpu_torch.runtime.decode import (  # noqa: E402
+    PLAN_ARRAYS,
+    launch_plan,
+    pad_plan,
+    stage_arrays,
+    stage_plan,
+)
 from zflac_tpu_torch.testing import tone_mix, wasted_bits_signal  # noqa: E402
 from zflac_tpu_torch.utils.timer import recording  # noqa: E402
 
@@ -48,6 +54,13 @@ _TRIANGLE = np.array([[1, 0, 0, 0], [-1, 1, 0, 0], [1, -2, 1, 0],
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _core(arrays, class_idx, kw):
+    """reconstruct_core on the CPU as the rows engine runs it: the
+    arrays and class lists packed in one buffer, uploaded, unpacked."""
+    return launch_plan(stage_arrays(
+        {k: arrays[k] for k in PLAN_ARRAYS}, class_idx, kw), "cpu")
 
 
 @pytest.fixture
@@ -249,9 +262,11 @@ def _plan(rng, dtype, bits: int, C: int, kinds):
 
 @pytest.mark.parametrize("case", list(_PLANS))
 def test_reconstruct_core_matches_jax(case, launches, no_cumsum):
-    """reconstruct_core == the JAX package's reconstruct (cumsums for
-    the fixed class, the XLA scan for LPC, under x64 for int64 rows or
-    an lpc_wide class) on the same plan arrays, with no torch.cumsum:
+    """reconstruct_core (on the plan arrays packed in one buffer, as
+    the rows engine stages them) == the JAX package's reconstruct
+    (cumsums for the fixed class, the XLA scan for LPC, under x64 for
+    int64 rows or an lpc_wide class) on the same arrays, with no
+    torch.cumsum:
     one lpc launch over the fixed and lpc classes' lanes (or over the
     one of them the plan has), lpc64 for lpc_wide, and
     `fixed_own_launches` 1 only where the fixed class had no lpc class
@@ -268,10 +283,8 @@ def test_reconstruct_core_matches_jax(case, launches, no_cumsum):
             *(jnp.asarray(arrays[k]) for k in _ORDER),
             {k: jnp.asarray(v) for k, v in class_idx.items()},
             jnp.asarray(arrays["channel_code"]), **kw))
-    t, ci = plan_to_torch(arrays, class_idx, "cpu")
     with recording() as rec:
-        got = trec.reconstruct_core(*(t[k] for k in _ORDER), ci,
-                                    t["channel_code"], **kw)
+        got = _core(arrays, class_idx, kw)
     assert got.dtype == getattr(torch, want.dtype.name)
     np.testing.assert_array_equal(got.numpy(), want)
     lanes = sum(len(class_idx[n]) for n in ("fixed", "lpc") if n in class_idx)
@@ -339,6 +352,7 @@ def test_decode_counts_fixed_lanes(case, launches, no_cumsum):
     assert len(launches) == 1 + safe_lpc
 
     arrays, class_idx = pad_plan(plan)
+    jarrays = dict(arrays, kind=plan.kind, seeds=plan.fixed_seeds)
     kw = dict(num_channels=plan.channels, container_bits=fmt.container_bits(
         bps), do_decorrelate=bool(np.any(
             plan.channel_code > fmt.CH_INDEPENDENT_MAX)))
@@ -349,12 +363,10 @@ def test_decode_counts_fixed_lanes(case, launches, no_cumsum):
     x64 = arrays["rows"].dtype == np.int64 or safe_lpc
     with jax.enable_x64(x64):
         want = np.asarray(jrec.reconstruct(
-            *(jnp.asarray(arrays[k]) for k in _ORDER),
+            *(jnp.asarray(jarrays[k]) for k in _ORDER),
             {k: jnp.asarray(v) for k, v in class_idx.items()},
             jnp.asarray(arrays["channel_code"]), **kw))
-    t, ci = plan_to_torch(arrays, class_idx, "cpu")
-    got = trec.reconstruct_core(*(t[k] for k in _ORDER), ci,
-                                t["channel_code"], **kw)
+    got = launch_plan(stage_plan(plan), "cpu")
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -368,9 +380,9 @@ def test_shard_with_fixed_lanes_and_no_lpc_lanes(launches, no_cumsum):
     data = encode(pcm, 44100, 16, EncoderConfig(block_size=1024))
     plan = build_plan_py(data)
     arrays, meta = pshard.shard_plan(plan, 4)
-    have = [set(pshard.local_arrays(arrays, meta, d, "cpu")) & {
-        "idx_fixed", "idx_lpc"} for d in range(4)]
-    assert have == [{"idx_lpc"}] * 3 + [{"idx_fixed"}]
+    have = [set(pshard.local_plan(arrays, meta, d, 16).class_names) & {
+        "fixed", "lpc"} for d in range(4)]
+    assert have == [{"lpc"}] * 3 + [{"fixed"}]
     with recording() as rec:
         got, total = reconstruct_sharded(plan, make_mesh(["cpu"] * 4))
     assert rec.stats["fixed_own_launches"] == 1

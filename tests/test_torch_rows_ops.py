@@ -4,11 +4,12 @@ kernels against the Pallas K6 kernel in interpret mode and the XLA scan
 _lpc_scan (int32, and int64 under x64) over the whole shift range; the
 flat rice16 layout against rice16_unpack_inline in interpret mode; the
 sentinel-safe scatters and clamped gathers; the fixed-order
-integration; the single-buffer Packer; reconstruct /
-reconstruct_packed on the same padded plan arrays as the JAX ones; and,
-on streams whose frame count is not a power of two, pad_plan's shapes
-(what the kernels need, not XLA's buckets) and the rows engine's entry
-points against the JAX package's decode.
+integration; the single-buffer Packer (int64 entries too);
+reconstruct_packed on the same padded plan arrays as the JAX
+reconstruct, staged in one buffer and uploaded in one copy for int32
+and int64 plans alike; and, on streams whose frame count is not a power
+of two, pad_plan's shapes (what the kernels need, not XLA's buckets)
+and the rows engine's entry points against the JAX package's decode.
 Tolerance zero: exact integer decodes. The same numpy inputs, made from
 a seed, go to both packages. The CUDA kernels themselves are held to
 these plain versions on the card by chip_smoke.py."""
@@ -337,6 +338,45 @@ def test_packer_round_trip_matches_jax():
         np.testing.assert_array_equal(g, v)
 
 
+@pytest.mark.parametrize("first", ["int32", "uint32"])
+def test_packer_int64_entries(first):
+    """An int64 array goes into the Packer as int32 word pairs at an
+    even word offset (one pad word after an odd-sized entry), tagged
+    "l", and unpack views it as int64 with its values; the int32 and
+    uint32 entries before it keep the JAX Packer's buffer and spec."""
+    from zflac_tpu.runtime import pack as jpack
+    from zflac_tpu_torch.runtime.pack import Packer, unpack
+
+    rng = np.random.default_rng(7)
+    head = {"order": rng.integers(0, 33, 5).astype(np.int32)}
+    if first == "uint32":
+        head = {"win": rng.integers(0, 1 << 32, 5, dtype=np.uint32)}
+    rows = rng.integers(-(1 << 40), 1 << 40, (3, 8), dtype=np.int64)
+    tail = np.array([1, 2, 3], np.int32)
+    p, jp = Packer(), jpack.Packer()
+    for k, v in head.items():
+        p.add(k, v)
+        jp.add(k, v)
+    p.add("rows", rows)
+    p.add("ci_lpc", tail)
+    buf, spec = p.finish()
+    jbuf, jspec = jp.finish()
+    assert spec[:1] == jspec
+    np.testing.assert_array_equal(buf[:5], jbuf)
+    (_, o_rows, shape, tag), (_, o_tail, _, _) = spec[1:]
+    assert (o_rows, shape, tag) == (6, (3, 8), "l") and o_tail == 6 + 48
+    assert len(buf) == 6 + 48 + 3
+    got = unpack(_t(buf), spec)
+    assert got["rows"].dtype == torch.int64
+    np.testing.assert_array_equal(got["rows"].numpy(), rows)
+    np.testing.assert_array_equal(got["ci_lpc"].numpy(), tail)
+    # rows first, as stage_plan packs them: offset 0, no pad word.
+    p = Packer()
+    p.add("rows", rows)
+    buf, spec = p.finish()
+    assert spec == (("rows", 0, (3, 8), "l"),) and len(buf) == 48
+
+
 # Streams made here beside the corpus's: 36 frames of stereo LPC, whose
 # class list of 72 entries is padded to 96, a multiple of 32 that is not
 # a power of two.
@@ -372,6 +412,14 @@ def _kw(plan):
 _ORDER = ("rows", "kind", "order", "wasted", "shift", "coeffs", "seeds")
 
 
+def _jax_args(plan, arrays):
+    """The JAX core's plan arguments in _ORDER: pad_plan's arrays, and
+    the plan's kind and fixed seeds, which the port's core does not
+    take."""
+    return [{"kind": plan.kind, "seeds": plan.fixed_seeds}.get(k)
+            if k in ("kind", "seeds") else arrays[k] for k in _ORDER]
+
+
 @pytest.mark.skipif(not native_available(), reason="needs native")
 @pytest.mark.parametrize("name,safe_lpc,pad", [
     ("lpc order 8", False, 1),                 # 16-bit: the lpc kernel
@@ -383,13 +431,15 @@ _ORDER = ("rows", "kind", "order", "wasted", "shift", "coeffs", "seeds")
     ("36 frames", False, 1),                   # lpc list 72 -> 96
 ])
 def test_reconstruct_matches_jax(name, safe_lpc, pad, corpus):
-    """The port's reconstruct on the same padded plan arrays
-    (pad_plan, plan_to_torch) == the JAX reconstruct (scan LPC, under
-    x64 for int64 rows or a wide class), with class lists padded with
-    sentinels to `pad` times their length, a multiple of 32 (gathers
-    and scatters of more sentinels than members)."""
+    """The port's reconstruct on the same padded plan arrays (pad_plan,
+    packed in one buffer by stage_arrays, int64 rows as word pairs, and
+    run by launch_plan) == the JAX reconstruct (scan LPC, under x64 for
+    int64 rows or a wide class), with class lists padded with sentinels
+    to `pad` times their length, a multiple of 32 (gathers and scatters
+    of more sentinels than members)."""
     from zflac_tpu.runtime import reconstruct as jrec
-    from zflac_tpu_torch.runtime.decode import pad_plan, plan_to_torch
+    from zflac_tpu_torch.runtime.decode import (launch_plan, pad_plan,
+                                                stage_arrays)
 
     plan = _plan(corpus, name, safe_lpc)
     arrays, class_idx = pad_plan(plan)
@@ -405,14 +455,89 @@ def test_reconstruct_matches_jax(name, safe_lpc, pad, corpus):
     x64 = arrays["rows"].dtype == np.int64 or bool(np.any(plan.wide))
     with jax.enable_x64(x64):
         want = np.asarray(jrec.reconstruct(
-            *(jnp.asarray(arrays[k]) for k in _ORDER),
+            *(jnp.asarray(a) for a in _jax_args(plan, arrays)),
             {k: jnp.asarray(v) for k, v in class_idx.items()},
             jnp.asarray(arrays["channel_code"]), **_kw(plan)))
-    t, ci = plan_to_torch(arrays, class_idx, "cpu")
-    got = trec.reconstruct(*(t[k] for k in _ORDER), ci, t["channel_code"],
-                           **_kw(plan))
+    staged = stage_arrays(arrays, class_idx, _kw(plan))
+    assert staged.spec[0][:2] == ("rows", 0)
+    got = launch_plan(staged, "cpu")
     assert got.dtype == getattr(torch, want.dtype.name)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.skipif(not native_available(), reason="needs native")
+@pytest.mark.parametrize("name,safe_lpc", [
+    ("lpc order 8", False),                    # int32 rows
+    ("bps 24", False),                         # int64 rows: lpc64
+    ("hi-res 32bit mid_side", False),          # int64, 33-bit sides
+    ("lpc order 32", True),                    # safe_lpc: lpc_wide
+])
+def test_launch_plan_uploads_one_buffer(name, safe_lpc, corpus,
+                                        monkeypatch):
+    """stage_plan -> launch_plan on the CPU makes exactly one
+    host-to-device copy (device.upload) for an int32 plan and for an
+    int64 one, the packed buffer, which holds neither the plan's kind
+    nor its fixed seeds; its PCM equals the JAX reconstruct's."""
+    from zflac_tpu.runtime import reconstruct as jrec
+    from zflac_tpu_torch.runtime import decode as rd
+
+    plan = _plan(corpus, name, safe_lpc)
+    uploads = []
+    real = rd.upload
+
+    def counted(host, device):
+        uploads.append(host)
+        return real(host, device)
+
+    monkeypatch.setattr(rd, "upload", counted)
+    staged = rd.stage_plan(plan)
+    assert {n for n, *_ in staged.spec} == {
+        *rd.PLAN_ARRAYS, *("ci_" + c for c in staged.class_names)}
+    tags = {n: tag for n, _, _, tag in staged.spec}
+    assert tags["rows"] == ("l" if plan.rows.dtype == np.int64 else "i")
+    got = rd.launch_plan(staged, "cpu")
+    assert len(uploads) == 1 and uploads[0] is staged.buf
+    arrays, class_idx = rd.pad_plan(plan)
+    x64 = plan.rows.dtype == np.int64 or safe_lpc
+    with jax.enable_x64(x64):
+        want = np.asarray(jrec.reconstruct(
+            *(jnp.asarray(a) for a in _jax_args(plan, arrays)),
+            {k: jnp.asarray(v) for k, v in class_idx.items()},
+            jnp.asarray(arrays["channel_code"]), **_kw(plan)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bps", [16, 24])
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_reconstruct_sharded_uploads_once_a_device(n_dev, bps,
+                                                   monkeypatch):
+    """reconstruct_sharded stages each device's slice of shard_plan in
+    one packed buffer (shard.local_plan; int64 rows at 24 bits) and
+    uploads it in one copy a device; its PCM equals the single-device
+    reconstruction's."""
+    from zflac_tpu_torch.encoder import EncoderConfig, encode
+    from zflac_tpu_torch.index import build_plan_py
+    from zflac_tpu_torch.parallel import reconstruct_sharded
+    from zflac_tpu_torch.runtime import decode as rd
+    from zflac_tpu_torch.testing import tone_mix
+
+    pcm = tone_mix(9 * 512, 2, bps, seed=9)
+    plan = build_plan_py(encode(pcm, 44100, bps,
+                                EncoderConfig(block_size=512)))
+    want = rd._run_reconstruct(plan, "cpu")
+    uploads = []
+    real = rd.upload
+
+    def counted(host, device):
+        uploads.append(host)
+        return real(host, device)
+
+    monkeypatch.setattr(rd, "upload", counted)
+    got, total = reconstruct_sharded(plan, ["cpu"] * n_dev)
+    assert len(uploads) == n_dev
+    assert all(u.dtype == np.int32 and u.ndim == 1 for u in uploads)
+    assert total == -(-9 // n_dev) * n_dev * 512
+    np.testing.assert_array_equal(got, want[:, :512])
 
 
 @pytest.mark.skipif(not native_available(), reason="needs native")
@@ -430,9 +555,10 @@ def test_reconstruct_packed_matches_jax(name, corpus):
     arrays, class_idx = pad_plan(plan)
     assert arrays["rows"].dtype == np.int32
     bufs = []
+    jarrays = dict(zip(_ORDER, _jax_args(plan, arrays)))
     for p in (Packer(), jpack.Packer()):
         for k in (*_ORDER, "channel_code"):
-            p.add(k, arrays[k])
+            p.add(k, jarrays.get(k, arrays.get(k)))
         for k, v in class_idx.items():
             p.add("ci_" + k, v)
         bufs.append(p.finish())
@@ -465,7 +591,7 @@ def test_pad_plan_pads_only_what_the_kernels_need(name, corpus):
     power-of-two frame axis), and each class list ceil32 long, its tail
     only the sentinel S."""
     from zflac_tpu_torch.index import build_plan
-    from zflac_tpu_torch.runtime.decode import pad_plan
+    from zflac_tpu_torch.runtime.decode import PLAN_ARRAYS, pad_plan
 
     plan = build_plan(corpus[name][0])
     F, S, B = plan.num_frames, plan.num_subframes, plan.max_block
@@ -474,10 +600,11 @@ def test_pad_plan_pads_only_what_the_kernels_need(name, corpus):
     assert arrays["rows"].shape == (S, -(-B // 8) * 8)
     np.testing.assert_array_equal(arrays["rows"][:, :B], plan.rows)
     assert not arrays["rows"][:, B:].any()
-    for k in ("kind", "order", "wasted", "shift"):
+    # Only what the card reads: no kind, no fixed seeds.
+    assert set(arrays) == set(PLAN_ARRAYS)
+    for k in ("order", "wasted", "shift"):
         assert arrays[k].shape == (S,), k
     assert arrays["coeffs"].shape == (S, 32)
-    assert arrays["seeds"].shape == (S, 4)
     assert arrays["channel_code"].shape == (F,)
     classes = {k: v for k, v in plan.classes().items() if len(v)}
     assert set(class_idx) == set(classes)

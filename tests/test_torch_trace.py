@@ -77,7 +77,7 @@ def test_decode_to_device_stats_hold_every_phase(name, corpus):
     # Corpus streams are under the 1 MiB split: one serial scan.
     want = {"scan_ms", "scan_estimate_ms", "scan_serial_ms",
             "enqueue_ms", "enqueue_upload_ms", "enqueue_launch_ms",
-            "rescan_ms", *SCAN_COUNTERS}
+            *SCAN_COUNTERS}
     assert want <= set(st), want - set(st)
     assert "scan_ranges_ms" not in st and "scan_anchors_ms" not in st
     assert all(st[k] >= 0 for k in want)

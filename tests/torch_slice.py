@@ -79,6 +79,24 @@ def assert_same(dd, ref, verify_md5=True):
     return got
 
 
+def class_caps(cks):
+    """Union class capacities (in PACK2_CLASSES order), patch capacity
+    and wide flag over a list of the port's pack2 chunks: the force_*
+    inputs that make a re-scan of each chunk produce one identical
+    geometry (the JAX package's union re-scan; the port reconstructs
+    each chunk in its own geometry)."""
+    from zflac_tpu_torch.index.native_indexer import PACK2_CLASSES
+
+    caps = {}
+    for ck in cks:
+        for name, cn, _ in ck.classes:
+            caps[name] = max(caps.get(name, 0), cn)
+    cnp = [caps.get(n, 0) for n in PACK2_CLASSES]
+    pnp = max([ck.n_patch_p for ck in cks] + [1])
+    wide = any(ck.wide for ck in cks)
+    return cnp, pnp, wide
+
+
 def check_stream(name, corpus):
     """decode_to_device on the CPU == zflac_tpu.decode_to_device, with
     the stream MD5 verified, and == the encoder's input."""

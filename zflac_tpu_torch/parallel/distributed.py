@@ -54,7 +54,7 @@ from ..runtime.decode import _assemble, _finish, _run_reconstruct
 from ..runtime.device import (apply_stop_cut, chunk_parts,
                               reconstruct_chunks, resolve_device)
 from ..utils.log import get_logger
-from ..utils.timer import count, recording, span
+from ..utils.timer import recording, span
 from .longstream import boundary_exchange, range_starts
 from .shard import chunk_samples, make_mesh
 
@@ -168,8 +168,7 @@ def range_chunks(data: bytes, info, first: int, num_local: int,
     its range's end or was left without a frame start; the flag is
     exchanged, so every process gets None together. Records in the open
     call (utils/timer.py) the host-clock time of the anchor table and
-    the scans (`scan_ms`) and `rescan_ms` 0.0: no range is scanned
-    twice."""
+    the scans (`scan_ms`). No range is scanned twice."""
     p, Pn = _world()
     L = num_local
 
@@ -195,7 +194,6 @@ def range_chunks(data: bytes, info, first: int, num_local: int,
         # A process with zero anchor ranges has no chunk: everyone falls
         # back to the longstream path, which handles empty shards.
         ok = 0
-    count("rescan_ms", 0.0)
 
     # 3. only the flag crosses: each process reconstructs and flattens
     # its own chunks, so no buffer layout has to agree across processes.
@@ -228,8 +226,8 @@ def decode_pack2_distributed(data: bytes, check_crc: bool = False,
          reference's STREAMINFO-total stop semantics, verifies MD5,
          and returns an identical DecodedFLAC, whose stats hold what
          range_chunks recorded: this process's host-clock `scan_ms`
-         (steps 1-2), `rescan_ms` (0.0) and the scan's `scan_parse_ms`
-         and `scan_emit_ms`, the keys decode_to_device reports.
+         (steps 1-2) and the scan's `scan_parse_ms` and `scan_emit_ms`,
+         the keys decode_to_device reports.
 
     Falls back to decode_longstream_distributed when any process's
     range declines the pack2 scan (the flag itself is exchanged, so

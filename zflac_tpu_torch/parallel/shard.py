@@ -29,19 +29,17 @@ from ..bitio import BitReader
 from ..index import native_indexer
 from ..oracle import parse_metadata
 from ..plan import StreamPlan
-from ..runtime.decode import CLASS_GROUP, TIME_GROUP, _round_up
+from ..runtime.decode import (CLASS_GROUP, PLAN_ARRAYS, TIME_GROUP,
+                              StagedPlan, _round_up, launch_plan,
+                              stage_arrays)
 from ..runtime.device import (assemble_chunks, cut_at_total,
                               estimate_total_frames, reconstruct_chunks,
-                              resolve_device, slot_block, stream_chunks,
-                              upload)
-from ..runtime.reconstruct import reconstruct_core
+                              resolve_device, slot_block, stream_chunks)
 from ..utils.log import get_logger
 
 _log_shard = get_logger("shard")
 
-# shard_plan's arrays, and the class each idx_* list belongs to.
-_SHARD_ARRAYS = ("rows", "kind", "order", "wasted", "shift", "coeffs",
-                 "seeds", "channel_code")
+# The class each of shard_plan's idx_* lists belongs to.
 _SHARD_CLASSES = {"idx_const": "const", "idx_verb": "verbatim",
                   "idx_fixed": "fixed", "idx_lpc": "lpc",
                   "idx_lpc_wide": "lpc_wide"}
@@ -67,25 +65,6 @@ def make_mesh(devices=None) -> list:
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [resolve_device(d) for d in devices]
-
-
-def _local_reconstruct(arrays: dict, *, block: int, num_channels: int,
-                       container_bits: int):
-    """Per-device reconstruction body: one device's slice of
-    shard_plan's arrays (tensors on that device) through the rows
-    engine's core. Classes with no member on this device are dropped;
-    the others keep their sentinel-padded lists, which the core's
-    clamped gathers and sentinel-safe scatters take. Stereo frames
-    decorrelate by their channel code. Returns (PCM [F_loc, block, C]
-    in the container dtype, the first `block` time rows, and the
-    samples per channel it holds)."""
-    class_idx = {cls: arrays[name] for name, cls in _SHARD_CLASSES.items()
-                 if name in arrays}
-    pcm = reconstruct_core(
-        *(arrays[n] for n in _SHARD_ARRAYS[:7]), class_idx,
-        arrays["channel_code"], num_channels=num_channels,
-        container_bits=container_bits, do_decorrelate=True)
-    return pcm[:, :block], pcm.shape[0] * block
 
 
 def shard_plan(plan: StreamPlan, num_devices: int):
@@ -169,30 +148,40 @@ def shard_plan(plan: StreamPlan, num_devices: int):
     return arrays, meta
 
 
-def local_arrays(arrays: dict, meta: dict, d: int, device) -> dict:
-    """Device d's slice of shard_plan's arrays on `device` (one upload
-    an array), in the shapes the kernels take. A class with no member
-    on this device is left out."""
+def local_plan(arrays: dict, meta: dict, d: int,
+               container_bits: int) -> StagedPlan:
+    """Device d's slice of shard_plan's arrays, in the shapes the
+    kernels take, staged as the rows engine stages a plan (one packed
+    buffer, runtime/decode.py stage_arrays). A class with no member on
+    this device is left out; the others keep their sentinel-padded
+    lists, which the core's clamped gathers and sentinel-safe scatters
+    take. Stereo frames decorrelate by their channel code."""
     S_loc = meta["F_loc"] * meta["C"]
-    return {name: upload(a[d], device) for name, a in arrays.items()
-            if name not in _SHARD_CLASSES or (a[d] < S_loc).any()}
+    class_idx = {cls: arrays[name][d]
+                 for name, cls in _SHARD_CLASSES.items()
+                 if (arrays[name][d] < S_loc).any()}
+    return stage_arrays(
+        {n: arrays[n][d] for n in PLAN_ARRAYS}, class_idx,
+        dict(num_channels=meta["C"], container_bits=container_bits,
+             do_decorrelate=True))
 
 
 def reconstruct_sharded(plan: StreamPlan, mesh):
     """Decode-phase-2 across the mesh: slice d of shard_plan's arrays
-    goes to mesh[d] and is reconstructed there; every device is queued
-    before the first is waited for. Returns host
-    PCM [F, B, C] and the total of the per-device sample counts (the
-    JAX function's: F_loc x B a device)."""
+    goes to mesh[d] in one upload and is reconstructed there by the
+    rows engine's core; every device is queued before the first is
+    waited for. Returns host PCM [F, B, C] and the total of the
+    per-device sample counts (the JAX function's: F_loc x B a
+    device)."""
     mesh = make_mesh(mesh)
     arrays, meta = shard_plan(plan, len(mesh))
     container_bits = fmt.container_bits(plan.info.bits_per_sample)
-    launched = [_local_reconstruct(
-        local_arrays(arrays, meta, d, device), block=meta["B"],
-        num_channels=meta["C"], container_bits=container_bits)
-        for d, device in enumerate(mesh)]
-    pcm = np.concatenate([p.cpu().numpy() for p, _ in launched])
-    return pcm[:meta["F"]], sum(n for _, n in launched)
+    B = meta["B"]
+    launched = [launch_plan(local_plan(arrays, meta, d, container_bits),
+                            device)[:, :B]
+                for d, device in enumerate(mesh)]
+    pcm = np.concatenate([p.cpu().numpy() for p in launched])
+    return pcm[:meta["F"]], sum(p.shape[0] * B for p in launched)
 
 
 # ---------------------------------------------------------------------------

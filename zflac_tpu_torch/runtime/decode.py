@@ -6,9 +6,9 @@ The host indexer (index.build_plan, or index_range for a byte range;
 the port's copy of the JAX package's) builds a StreamPlan.
 _run_reconstruct pads it to the shapes the kernels need (pad_plan: the
 time axis to a multiple of 8, sentinel-padded class lists of whole
-warp-blocks), uploads it (one pinned, non-blocking copy
-of one packed buffer for int32 streams; one such copy per array for
-int64 streams), reconstructs [F, B, C] PCM on the device
+warp-blocks), packs it into one buffer (runtime/pack.py) and uploads
+that in one pinned, non-blocking copy, reconstructs [F, B, C] PCM on
+the device
 (runtime/reconstruct.py: the lpc kernel at int32, lpc64 at int64,
 the fixed class as lanes of the lpc class's launch) and copies it back
 for assembly on the host.
@@ -42,15 +42,18 @@ from ..utils.timer import count, recording, span
 from .device import (estimate_total_frames, resolve_device, upload,
                      verify_stream_md5)
 from .pack import Packer
-from .reconstruct import reconstruct, reconstruct_packed
+from .reconstruct import reconstruct_packed
 
 _log_stream = get_logger("stream")
 _log_frame = get_logger("frame")
 _log_kernel = get_logger("kernel")
 
 ENGINES = ("torch", "native")
-_PLAN_ARRAYS = ("rows", "kind", "order", "wasted", "shift", "coeffs",
-                "seeds", "channel_code")
+# The plan arrays the card receives, rows first (at offset 0 of the
+# packed buffer). The plan's kind and fixed_seeds stay on the host: the
+# class lists carry the kind, and the fixed rows' warm-ups replace the
+# seeds (reconstruct.lpc_lanes_inputs).
+PLAN_ARRAYS = ("rows", "order", "wasted", "shift", "coeffs", "channel_code")
 
 
 # The lpc kernels run the time axis in groups of 8 steps (ops/lpc.py).
@@ -66,7 +69,7 @@ def _round_up(n: int, m: int) -> int:
 
 
 def pad_plan(plan: StreamPlan):
-    """The plan's arrays in the shapes the rows engine's kernels need:
+    """The PLAN_ARRAYS in the shapes the rows engine's kernels need:
     rows [S, B8] with B8 = B rounded up to a multiple of TIME_GROUP
     (zero columns after each block, which change nothing before them);
     the per-subframe arrays at their length S and channel_code at F, as
@@ -80,9 +83,8 @@ def pad_plan(plan: StreamPlan):
     B = plan.max_block
     rows = np.zeros((S, _round_up(B, TIME_GROUP)), dtype=plan.rows.dtype)
     rows[:, :B] = plan.rows
-    arrays = dict(rows=rows, kind=plan.kind, order=plan.order,
-                  wasted=plan.wasted, shift=plan.shift,
-                  coeffs=plan.coeffs_rev, seeds=plan.fixed_seeds,
+    arrays = dict(rows=rows, order=plan.order, wasted=plan.wasted,
+                  shift=plan.shift, coeffs=plan.coeffs_rev,
                   channel_code=plan.channel_code)
     class_idx = {}
     for name, idx in plan.classes().items():
@@ -94,34 +96,36 @@ def pad_plan(plan: StreamPlan):
     return arrays, class_idx
 
 
-def plan_to_torch(arrays: dict, class_idx: dict, device):
-    """pad_plan's numpy arrays as tensors on `device` (one pinned,
-    non-blocking copy each for a CUDA device). Returns (arrays,
-    class_idx) with the same keys."""
-    return ({k: upload(v, device) for k, v in arrays.items()},
-            {k: upload(v, device) for k, v in class_idx.items()})
-
-
 @dataclass
 class StagedPlan:
-    """A plan padded on the host, ready for the device: for an int32
-    stream one packed int32 buffer (`buf`, `spec`, `class_names`),
-    else pad_plan's `arrays` and `class_idx`; `kw` are reconstruct's
-    static arguments and F the frame count."""
-    F: int
+    """A plan padded and packed on the host, ready for the device: one
+    int32 buffer `buf` (int64 rows as word pairs) laid out as `spec`
+    says (runtime/pack.py), the classes present (`class_names`, buffer
+    entries "ci_<name>") and reconstruct_packed's static arguments
+    `kw`."""
     kw: dict
-    buf: np.ndarray | None = None
-    spec: tuple = ()
-    class_names: tuple = ()
-    arrays: dict | None = None
-    class_idx: dict | None = None
+    buf: np.ndarray
+    spec: tuple
+    class_names: tuple
+
+
+def stage_arrays(arrays: dict, class_idx: dict, kw: dict) -> StagedPlan:
+    """Pack pad_plan's PLAN_ARRAYS and class lists (or a device's slice
+    of shard_plan's) into one buffer, rows first."""
+    p = Packer()
+    for name in PLAN_ARRAYS:
+        p.add(name, arrays[name])
+    for name, idx in class_idx.items():
+        p.add("ci_" + name, idx)
+    buf, spec = p.finish()
+    return StagedPlan(kw, buf, spec, tuple(sorted(class_idx)))
 
 
 def stage_plan(plan: StreamPlan) -> StagedPlan:
-    """The host half of _run_reconstruct: pad the plan, and pack it
-    into one buffer when its rows are int32. Counts `fixed_lanes`, the
-    plan's fixed subframes (all run as lanes of an lpc kernel launch,
-    reconstruct_core), in the open call."""
+    """The host half of _run_reconstruct: pad the plan and pack it into
+    one buffer. Counts `fixed_lanes`, the plan's fixed subframes (all
+    run as lanes of an lpc kernel launch, reconstruct_core), in the
+    open call."""
     count("fixed_lanes", int(np.count_nonzero(plan.kind == fmt.SF_FIXED)))
     arrays, class_idx = pad_plan(plan)
     kw = dict(
@@ -129,37 +133,20 @@ def stage_plan(plan: StreamPlan) -> StagedPlan:
         container_bits=fmt.container_bits(plan.info.bits_per_sample),
         do_decorrelate=bool(
             np.any(plan.channel_code > fmt.CH_INDEPENDENT_MAX)))
-    if arrays["rows"].dtype != np.int32:
-        return StagedPlan(plan.num_frames, kw, arrays=arrays,
-                          class_idx=class_idx)
-    p = Packer()
-    for name in _PLAN_ARRAYS:
-        p.add(name, arrays[name])
-    for name, idx in class_idx.items():
-        p.add("ci_" + name, idx)
-    buf, spec = p.finish()
-    return StagedPlan(plan.num_frames, kw, buf=buf, spec=spec,
-                      class_names=tuple(sorted(class_idx)))
+    return stage_arrays(arrays, class_idx, kw)
 
 
 def launch_plan(staged: StagedPlan, device):
-    """The device half: upload the staged plan to `device` (one copy of
-    the packed buffer, else one per array) and queue its
-    reconstruction. Returns the PCM tensor [F, B8, C] without waiting
-    for it. Records `reconstruct_upload_ms` and `reconstruct_launch_ms`
-    in the open call (utils/timer.py)."""
-    if staged.buf is not None:
-        with span("reconstruct.upload"):
-            buf = upload(staged.buf, device)
-        with span("reconstruct.launch"):
-            return reconstruct_packed(buf, spec=staged.spec,
-                                      class_names=staged.class_names,
-                                      **staged.kw)
+    """The device half: upload the staged plan's buffer to `device` (one
+    copy) and queue its reconstruction. Returns the PCM tensor
+    [F, B8, C] without waiting for it. Records `reconstruct_upload_ms`
+    and `reconstruct_launch_ms` in the open call (utils/timer.py)."""
     with span("reconstruct.upload"):
-        t, ci = plan_to_torch(staged.arrays, staged.class_idx, device)
+        buf = upload(staged.buf, device)
     with span("reconstruct.launch"):
-        return reconstruct(*(t[n] for n in _PLAN_ARRAYS[:7]), ci,
-                           t["channel_code"], **staged.kw)
+        return reconstruct_packed(buf, spec=staged.spec,
+                                  class_names=staged.class_names,
+                                  **staged.kw)
 
 
 def _run_reconstruct(plan: StreamPlan, device, async_: bool = False):

@@ -38,7 +38,6 @@ copies of the JAX package's.
 from __future__ import annotations
 
 import contextvars
-import functools
 import hashlib
 import os
 import time
@@ -60,7 +59,7 @@ from ..ops.rice16 import rice16_unpack_rows
 from ..result import DecodedFLAC, container_dtype
 from ..utils.profiler import maybe_trace
 from ..utils.timer import count, merge, recording, span
-from .reconstruct import FIXED_COEFFS, decorrelate2
+from .reconstruct import decorrelate2, fixed_coeffs
 from .wide import join_i64, wrap_to
 
 _HIST = {"lpc8": 8, "lpc16": 16, "lpc32": 32}
@@ -221,24 +220,11 @@ def lpc_class_inputs(rows_t, buf, geom: Pack2Geom) -> dict:
             for name, sl in _class_slices(geom) if name in _HIST}
 
 
-@functools.cache
-def _fixed_table(device: torch.device):
-    """FIXED_COEFFS as a constant [8, 5] int32 table on `device`, column
-    k the coefficients of order k (row r = c_{r+1}), made once a device
-    so that no chunk pays a host-to-device copy for it."""
-    host = torch.zeros((8, len(FIXED_COEFFS)), dtype=torch.int32)
-    for k, coeffs in enumerate(FIXED_COEFFS):
-        host[:k, k] = torch.tensor(coeffs, dtype=torch.int32)
-    return host.to(device)
-
-
 def fixed_cfwd(order):
     """The hist-8 LPC coefficients [8, n] int32 (row r = c_{r+1}) of
-    fixed lanes of these orders [n]: one gather from _fixed_table. An
-    order outside 0-4, which no scan writes, reads as the nearest, as
-    fixed_integrate_t treats it."""
-    return _fixed_table(order.device).index_select(
-        1, torch.clamp(order, 0, 4))
+    fixed lanes of these orders [n] (reconstruct.fixed_coeffs' forward
+    layout, clamped to orders 0-4)."""
+    return fixed_coeffs(order, reverse=False)
 
 
 def lpc_launches(rows_t, buf, geom: Pack2Geom) -> dict:
@@ -499,22 +485,6 @@ def estimate_total_frames(data: bytes, pos: int, info,
     return max(probe.F, -(-(len(data) - pos) // bpf))
 
 
-def class_caps(cks):
-    """Union class capacities (in PACK2_CLASSES order), patch capacity
-    and wide flag over a chunk list: the force_* inputs that would make
-    a re-scan of each chunk produce one identical geometry (the JAX
-    package's union re-scan; the port reconstructs each chunk in its
-    own geometry)."""
-    caps = {}
-    for ck in cks:
-        for name, cn, _ in ck.classes:
-            caps[name] = max(caps.get(name, 0), cn)
-    cnp = [caps.get(n, 0) for n in native_indexer.PACK2_CLASSES]
-    pnp = max([ck.n_patch_p for ck in cks] + [1])
-    wide = any(ck.wide for ck in cks)
-    return cnp, pnp, wide
-
-
 def scan_pack2_chunks(data: bytes, pos: int, info, chunk_frames: int,
                       Bp: int, check_crc: bool, workers: int = 0):
     """Scan the stream into pack2 chunks of at most `chunk_frames`
@@ -710,10 +680,9 @@ def stream_chunks(data: bytes, info, pos: int, *, check_crc: bool = False,
     layout's Bp of the stream's largest block. Returns a list of
     Pack2Chunk, or None (decline). Records in the open call
     (utils/timer.py) the host-clock `scan_ms`, with the frame estimate's
-    `scan_estimate_ms` and scan_pack2_chunks' phases inside it, and
-    `rescan_ms` 0, since no chunk is scanned twice (the JAX package
-    re-scans diverging chunks with their union geometry, and tools read
-    the key from both)."""
+    `scan_estimate_ms` and scan_pack2_chunks' phases inside it. No chunk
+    is scanned twice: the JAX package re-scans diverging chunks with
+    their union geometry, the port keeps each chunk's own."""
     Bp = _bucket_block(max(info.max_block_size, 16))
     with span("scan"):
         if chunk_frames <= 0:
@@ -733,7 +702,6 @@ def stream_chunks(data: bytes, info, pos: int, *, check_crc: bool = False,
                                    check_crc, workers=scan_workers)
     if not chunks:
         return None
-    count("rescan_ms", 0.0)
     return [ck for _, ck in chunks]
 
 

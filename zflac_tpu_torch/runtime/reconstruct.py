@@ -108,15 +108,31 @@ def lpc_scan(rows, coeffs_rev, shift, order):
 
 
 @functools.cache
-def _fixed_coeffs_rev(device: torch.device):
-    """FIXED_COEFFS in the lpc kernel's layout as a constant [32, 5]
-    int32 table on `device`: column k the coefficients of order k, row
-    31 - j multiplying s[t-1-j]. Made once a device, so that no plan
+def _fixed_table(device: torch.device, reverse: bool):
+    """FIXED_COEFFS as a constant int32 table on `device`, column k the
+    coefficients of order k: [8, 5] with row r = c_{r+1} (the forward
+    hist-8 layout of pack2's LPC kernels), or with `reverse` [32, 5]
+    with row 31 - j multiplying s[t-1-j] (the rows engine's lpc
+    kernel). Made once a device and layout, so that no chunk or plan
     pays a host-to-device copy for it."""
-    host = torch.zeros((HIST, len(FIXED_COEFFS)), dtype=torch.int32)
+    hist = HIST if reverse else 8
+    host = torch.zeros((hist, len(FIXED_COEFFS)), dtype=torch.int32)
     for k, coeffs in enumerate(FIXED_COEFFS):
-        host[HIST - k:, k] = torch.tensor(coeffs[::-1], dtype=torch.int32)
+        if reverse:
+            host[hist - k:, k] = torch.tensor(coeffs[::-1],
+                                              dtype=torch.int32)
+        else:
+            host[:k, k] = torch.tensor(coeffs, dtype=torch.int32)
     return host.to(device)
+
+
+def fixed_coeffs(order, *, reverse: bool):
+    """The LPC coefficients [hist, n] int32 of fixed lanes of these
+    orders [n], in _fixed_table's layout: one gather from the table. An
+    order outside 0-4, which no scan or indexer writes, reads as the
+    nearest, as fixed_integrate_t treats it."""
+    return _fixed_table(order.device, reverse).index_select(
+        1, torch.clamp(order, 0, len(FIXED_COEFFS) - 1))
 
 
 def lpc_lanes_inputs(rows, coeffs_rev, shift, order, fixed_idx, lpc_idx):
@@ -126,9 +142,8 @@ def lpc_lanes_inputs(rows, coeffs_rev, shift, order, fixed_idx, lpc_idx):
     order k is an LPC subframe with the coefficients FIXED_COEFFS[k] and
     shift 0: the plan holds its raw warm-ups at t < order and its
     residuals after, and its shift 0, so only its coefficients come from
-    elsewhere, the table by order (an order outside 0-4, which no
-    indexer writes, reads as the nearest). Returns (the joined gather
-    list, (rows [B, n], coeffs [32, n], shift [n], order [n]))."""
+    elsewhere (fixed_coeffs). Returns (the joined gather list, (rows
+    [B, n], coeffs [32, n], shift [n], order [n]))."""
     if fixed_idx is None:
         idx = lpc_idx
     elif lpc_idx is None:
@@ -140,8 +155,7 @@ def lpc_lanes_inputs(rows, coeffs_rev, shift, order, fixed_idx, lpc_idx):
     n_fixed = 0 if fixed_idx is None else fixed_idx.shape[0]
     coeffs = []
     if fixed_idx is not None:
-        coeffs.append(_fixed_coeffs_rev(rows.device).index_select(
-            1, torch.clamp(order_g[:n_fixed], 0, len(FIXED_COEFFS) - 1)))
+        coeffs.append(fixed_coeffs(order_g[:n_fixed], reverse=True))
     if lpc_idx is not None:
         coeffs.append(coeffs_rev[gi[n_fixed:]].t())
     coeffs_t = (torch.cat(coeffs, dim=1) if len(coeffs) > 1
@@ -150,29 +164,17 @@ def lpc_lanes_inputs(rows, coeffs_rev, shift, order, fixed_idx, lpc_idx):
     return idx, (rows_t, coeffs_t, shift[gi], order_g)
 
 
-def lpc_class_inputs(rows, coeffs_rev, shift, order, idx, *,
-                     widen: bool = False):
-    """The lpc kernel's time-major arguments for the LPC class with
-    padded gather list idx: (rows [B, n], coeffs [32, n], shift [n],
-    order [n]), rows widened to int64 when `widen` (the lpc_wide
-    class)."""
-    _, args = lpc_lanes_inputs(rows, coeffs_rev, shift, order, None, idx)
-    if widen:
-        args = (args[0].long(), *args[1:])
-    return args
-
-
-def reconstruct_core(rows, kind, order, wasted, shift, coeffs_rev,
-                     fixed_seeds, class_idx, channel_code, *,
-                     num_channels: int, container_bits: int,
+def reconstruct_core(rows, order, wasted, shift, coeffs_rev, class_idx,
+                     channel_code, *, num_channels: int, container_bits: int,
                      do_decorrelate: bool):
     """Plan tensors -> container-width PCM [F, B, C] (pre-normalization)
     on their device. rows [S, B] int32 or int64; class_idx: name ->
-    padded int32 gather list whose entries >= S are sentinels. kind and
-    fixed_seeds are not read: the class lists carry the kind, as in the
-    JAX core, and the fixed rows' warm-ups replace their seeds
-    (lpc_lanes_inputs). Counts `fixed_own_launches` in the open call (1
-    where the fixed class had no lpc class to share a launch with)."""
+    padded int32 gather list whose entries >= S are sentinels. The JAX
+    core also takes the plan's kind and fixed seeds; here the class
+    lists carry the kind, and the fixed rows' warm-ups replace their
+    seeds (lpc_lanes_inputs). Counts `fixed_own_launches` in the open
+    call (1 where the fixed class had no lpc class to share a launch
+    with)."""
     S, B = rows.shape
     dtype = rows.dtype
     # Every class writes in place into one canvas whose dead row S takes
@@ -203,8 +205,11 @@ def reconstruct_core(rows, kind, order, wasted, shift, coeffs_rev,
         # An int32 stream's class whose accumulator may pass 32 bits:
         # lpc64 (the reference's InterType widening, zflac.zig:314-319),
         # then back to the stream dtype with wraparound.
-        put_rows_(signal, idx, wrap_to(lpc_reconstruct(*lpc_class_inputs(
-            rows, coeffs_rev, shift, order, idx, widen=True)).t(), dtype))
+        _, args = lpc_lanes_inputs(rows, coeffs_rev, shift, order, None,
+                                   idx)
+        args = (args[0].long(), *args[1:])
+        put_rows_(signal, idx, wrap_to(lpc_reconstruct(*args).t(), dtype))
+        del args
 
     # Wasted-bits shift (zflac.zig:447,459,495-496,538-539).
     signal = signal[:S] << wasted.to(dtype)[:, None]
@@ -219,19 +224,14 @@ def reconstruct_core(rows, kind, order, wasted, shift, coeffs_rev,
                          32: torch.int32}[container_bits])
 
 
-# PyTorch runs eagerly: the JAX package's jitted reconstruct is its core.
-reconstruct = reconstruct_core
-
-
 def reconstruct_packed(buf, *, spec, class_names, num_channels: int,
                        container_bits: int, do_decorrelate: bool):
-    """Single-buffer variant of reconstruct: `buf` is the int32 tensor
+    """reconstruct_core on one packed buffer: `buf` is the int32 tensor
     of runtime/pack.py's Packer on the device, `spec` its layout and
     `class_names` the classes present (buffer entries "ci_<name>")."""
     a = unpack(buf, spec)
     class_idx = {n: a["ci_" + n] for n in class_names}
     return reconstruct_core(
-        a["rows"], a["kind"], a["order"], a["wasted"], a["shift"],
-        a["coeffs"], a["seeds"], class_idx, a["channel_code"],
-        num_channels=num_channels, container_bits=container_bits,
-        do_decorrelate=do_decorrelate)
+        a["rows"], a["order"], a["wasted"], a["shift"], a["coeffs"],
+        class_idx, a["channel_code"], num_channels=num_channels,
+        container_bits=container_bits, do_decorrelate=do_decorrelate)
