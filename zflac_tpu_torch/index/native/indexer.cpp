@@ -833,6 +833,15 @@ struct Plan {
   uint8_t computed_md5[16];
   int32_t md5_state;
   int32_t _pad5;
+  // Whole-stream index (zfi_index_ex, zfi_index_skim): its two phases
+  // on the steady clock, the frame parse (the parallel anchors,
+  // segments and re-validation, or the sequential scan) and the pack
+  // into the arrays above; the segments packed, one thread each (1 for
+  // one sequential scan); 1 when the parallel parse fell back to the
+  // sequential scan.
+  int64_t parse_ns, pack_ns;
+  int32_t pack_segments;
+  int32_t index_fallback;
 };
 
 
@@ -842,6 +851,25 @@ static T* alloc_copy(const std::vector<T>& v) {
   if (!p) fail(E_UNIMPLEMENTED);
   if (!v.empty()) std::memcpy(p, v.data(), v.size() * sizeof(T));
   return p;
+}
+
+// An uninitialised array of n T (at least one byte, so that an empty
+// array is a pointer the caller frees like any other).
+template <typename T>
+static T* alloc_n(uint64_t n) {
+  T* p = (T*)std::malloc(n ? n * sizeof(T) : 1);
+  if (!p) fail(E_UNIMPLEMENTED);
+  return p;
+}
+
+// fn(i) for each i in [0, n): on the calling thread when n is 1, else
+// on n - 1 new threads and the calling thread. fn must not throw.
+template <typename Fn>
+static void run_each(size_t n, Fn&& fn) {
+  std::vector<std::thread> th;
+  for (size_t i = 1; i < n; i++) th.emplace_back([&fn, i] { fn(i); });
+  if (n) fn(0);
+  for (auto& t : th) t.join();
 }
 
 
@@ -1405,14 +1433,24 @@ struct SegResult {
   int err = OK;          // first error hit inside the segment
 };
 
+// What parallel_index did: not tried (one core, or a stream under
+// 1 MiB), fell back (the sequential scan must run), or done.
+enum class ParallelIndex { kNotTried, kFellBack, kDone };
+
+// Parse the frames in byte segments, one thread each, into `segs` (in
+// stream order), and set *keep to the number of frames the sequential
+// scan keeps (it stops at the STREAMINFO total). With kDone, *seq_err
+// holds the stream error the sequential scan would raise, or OK.
 template <typename V>
-static bool parallel_index(const uint8_t* data, size_t len, int check_crc,
-                           uint32_t si_bps, size_t first_frame_byte,
-                           const Plan* si, Range<V>& out, int* seq_err,
-                           bool emit_groups = false) {
+static ParallelIndex parallel_index(const uint8_t* data, size_t len,
+                                    int check_crc, uint32_t si_bps,
+                                    size_t first_frame_byte, const Plan* si,
+                                    bool skim, std::vector<Range<V>>& segs,
+                                    size_t* keep, int* seq_err,
+                                    bool emit_groups = false) {
   size_t span = len - first_frame_byte;
   unsigned T = engine_threads();
-  if (T < 2 || span < (1u << 20)) return false;
+  if (T < 2 || span < (1u << 20)) return ParallelIndex::kNotTried;
   if (T > 16) T = 16;
 
   // Phase 1: anchors (parallel).
@@ -1436,15 +1474,15 @@ static bool parallel_index(const uint8_t* data, size_t len, int check_crc,
       starts.push_back(anchors[t]);
 
   // Phase 2: parse each segment (parallel).
-  std::vector<SegResult<V>> segs(starts.size());
+  std::vector<SegResult<V>> res(starts.size());
   {
     std::vector<std::thread> th;
     for (size_t s = 0; s < starts.size(); s++) {
       int64_t lo = starts[s];
       int64_t hi = s + 1 < starts.size() ? starts[s + 1] : (int64_t)len;
       th.emplace_back([&, s, lo, hi] {
-        SegResult<V>& r = segs[s];
-        r.range.skim = out.skim;
+        SegResult<V>& r = res[s];
+        r.range.skim = skim;
         if (!r.range.skim) r.range.vals.reserve((size_t)(hi - lo));
         BitReader br{data, len, (uint64_t)lo * 8};
         try {
@@ -1469,295 +1507,263 @@ static bool parallel_index(const uint8_t* data, size_t len, int check_crc,
   // mismatch (false anchor / mid-frame error) falls back to the exact
   // sequential scan.
   int trailing_err = OK;
-  for (size_t s = 0; s < segs.size(); s++) {
-    bool last = s + 1 == segs.size();
-    if (segs[s].err != OK) {
-      if (!last) return false;
-      trailing_err = segs[s].err;  // may be legal: resolved after merge
-    } else if (!last && segs[s].landed != starts[s + 1]) {
-      return false;
+  for (size_t s = 0; s < res.size(); s++) {
+    bool last = s + 1 == res.size();
+    if (res[s].err != OK) {
+      if (!last) return ParallelIndex::kFellBack;
+      trailing_err = res[s].err;  // may be legal: resolved below
+    } else if (!last && res[s].landed != starts[s + 1]) {
+      return ParallelIndex::kFellBack;
     }
   }
 
-  // Merge.
-  for (auto& seg : segs) {
-    uint64_t val_base = out.vals.size();
-    uint32_t grp_base = (uint32_t)out.g_at.size();
-    int32_t sub_base = (int32_t)out.subs.size();
-    for (auto sm : seg.range.subs) {
-      sm.val_off += val_base;
-      if (sm.grp_n) sm.grp_start += grp_base;
-      out.subs.push_back(sm);
-    }
-    if (out.skim) {
-      out.ex.warm.insert(out.ex.warm.end(), seg.range.ex.warm.begin(),
-                         seg.range.ex.warm.end());
-      for (int32_t ps : seg.range.ex.p_sub)
-        out.ex.p_sub.push_back(ps + sub_base);
-      out.ex.p_pos.insert(out.ex.p_pos.end(), seg.range.ex.p_pos.begin(),
-                          seg.range.ex.p_pos.end());
-      out.ex.p_val.insert(out.ex.p_val.end(), seg.range.ex.p_val.begin(),
-                          seg.range.ex.p_val.end());
-    }
-    out.vals.insert(out.vals.end(), seg.range.vals.begin(),
-                    seg.range.vals.end());
-    out.frames.insert(out.frames.end(), seg.range.frames.begin(),
-                      seg.range.frames.end());
-    out.g_at.insert(out.g_at.end(), seg.range.g_at.begin(),
-                    seg.range.g_at.end());
-    out.g_off.insert(out.g_off.end(), seg.range.g_off.begin(),
-                     seg.range.g_off.end());
-    out.g_k.insert(out.g_k.end(), seg.range.g_k.begin(),
-                   seg.range.g_k.end());
-    out.g_depth.insert(out.g_depth.end(), seg.range.g_depth.begin(),
-                       seg.range.g_depth.end());
-  }
-
-  // Re-validate with exact sequential semantics over the merged frame
-  // list (consistency, bs==1, cut/truncation, EOF rules).
+  // Re-validate with exact sequential semantics over the segments'
+  // frames in order (consistency, bs==1, cut/truncation, EOF rules).
   SeqCtx ctx{};
   ctx.valid_total = si->si_total_samples > 0;
   ctx.expected_channels = si->si_channels;
   ctx.total_count = ctx.expected_channels *
       (ctx.valid_total ? si->si_total_samples : 4096);
-  size_t cut = out.frames.size();
-  for (size_t i = 0; i < out.frames.size(); i++) {
-    const FrameInfo& f = out.frames[i];
-    if (ctx.valid_total && ctx.offset >= ctx.total_count) {
-      cut = i;  // sequential stops here; later bytes are ignored
-      trailing_err = OK;
-      break;
-    }
-    uint32_t nch = (uint32_t)channel_count(f.ch_code);
-    if (ctx.first) {
-      ctx.sample_rate = f.frame_sr;
-      ctx.locked_count = nch;
-      ctx.bd_code = (int)f.bd_code;
-      if (nch != ctx.expected_channels) {
-        *seq_err = E_INCONSISTENT_PARAMETERS;
-        return true;
+  size_t n_frames = 0;
+  bool stopped = false;
+  for (size_t s = 0; s < res.size() && !stopped; s++) {
+    for (const FrameInfo& f : res[s].range.frames) {
+      if (ctx.valid_total && ctx.offset >= ctx.total_count) {
+        stopped = true;  // sequential stops here; later bytes are ignored
+        trailing_err = OK;
+        break;
       }
-      ctx.first = false;
-    } else if (ctx.sample_rate != f.frame_sr ||
-               ctx.locked_count != nch ||
-               ctx.bd_code != (int)f.bd_code) {
-      *seq_err = E_INCONSISTENT_PARAMETERS;
-      return true;
+      uint32_t nch = (uint32_t)channel_count(f.ch_code);
+      if (ctx.first) {
+        ctx.sample_rate = f.frame_sr;
+        ctx.locked_count = nch;
+        ctx.bd_code = (int)f.bd_code;
+        if (nch != ctx.expected_channels) {
+          *seq_err = E_INCONSISTENT_PARAMETERS;
+          return ParallelIndex::kDone;
+        }
+        ctx.first = false;
+      } else if (ctx.sample_rate != f.frame_sr ||
+                 ctx.locked_count != nch ||
+                 ctx.bd_code != (int)f.bd_code) {
+        *seq_err = E_INCONSISTENT_PARAMETERS;
+        return ParallelIndex::kDone;
+      }
+      uint64_t expected_end =
+          ctx.offset + (uint64_t)f.block_size * ctx.locked_count;
+      if (ctx.valid_total && expected_end > ctx.total_count)
+        ctx.valid_total = false;
+      if (f.block_size == 1 && ctx.valid_total &&
+          expected_end < ctx.total_count) {
+        *seq_err = E_INVALID_FRAME_HEADER;
+        return ParallelIndex::kDone;
+      }
+      ctx.offset = expected_end;
+      n_frames++;
     }
-    uint64_t expected_end =
-        ctx.offset + (uint64_t)f.block_size * ctx.locked_count;
-    if (ctx.valid_total && expected_end > ctx.total_count)
-      ctx.valid_total = false;
-    if (f.block_size == 1 && ctx.valid_total &&
-        expected_end < ctx.total_count) {
-      *seq_err = E_INVALID_FRAME_HEADER;
-      return true;
-    }
-    ctx.offset = expected_end;
   }
   if (trailing_err != OK) {
     // An in-segment error the sequential scan would also reach.
-    return false;
+    return ParallelIndex::kFellBack;
   }
-  if (cut == out.frames.size() && ctx.valid_total &&
-      ctx.offset < ctx.total_count) {
+  if (!stopped && ctx.valid_total && ctx.offset < ctx.total_count) {
     *seq_err = E_END_OF_STREAM;
-    return true;
+    return ParallelIndex::kDone;
   }
-  if (cut < out.frames.size()) {
-    // Drop frames past the sequential stop point.
-    size_t sub_cut = 0;
-    uint64_t val_cut = 0;
-    for (size_t i = 0; i < cut; i++)
-      sub_cut += (size_t)channel_count(out.frames[i].ch_code);
-    if (sub_cut < out.subs.size())
-      val_cut = out.subs[sub_cut].val_off;
-    else
-      val_cut = out.vals.size();
-    out.frames.resize(cut);
-    out.subs.resize(sub_cut);
-    out.vals.resize(val_cut);
-    if (out.skim) {
-      out.ex.warm.resize(sub_cut * 32);
-      size_t wr = 0;
-      for (size_t i = 0; i < out.ex.p_sub.size(); i++) {
-        if (out.ex.p_sub[i] < (int32_t)sub_cut) {
-          out.ex.p_sub[wr] = out.ex.p_sub[i];
-          out.ex.p_pos[wr] = out.ex.p_pos[i];
-          out.ex.p_val[wr] = out.ex.p_val[i];
-          wr++;
-        }
-      }
-      out.ex.p_sub.resize(wr);
-      out.ex.p_pos.resize(wr);
-      out.ex.p_val.resize(wr);
-    }
-  }
+  *keep = n_frames;
+  segs.clear();
+  for (auto& r : res) segs.push_back(std::move(r.range));
   *seq_err = OK;
-  return true;
+  return ParallelIndex::kDone;
 }
 
 // ---- pack + entry ----
 
+// Pack parsed segments (in stream order) into the dense C-ABI plan, of
+// which the first `keep` frames are kept. Every array is allocated once
+// and each segment's thread writes its own slice of it: its frames,
+// its subframes' rows (the values, then zeros to the largest block)
+// and metadata, and their Rice-group table; then it frees its values.
+// Locked parameters come from the first frame kept. out->pack_ns is the
+// pack's time on the steady clock, out->pack_segments the segments.
 template <typename V>
-static int index_stream_t(const uint8_t* data, size_t len, int check_crc,
-                          uint32_t si_bps, BitReader br, Plan* out,
-                          int64_t* err_pos, bool emit_groups = false,
-                          bool skim = false);
-
-template <typename V>
-static void pack_range(Range<V>& range, uint32_t si_bps, Plan* out);
-
-template <typename V>
-static int index_stream_t(const uint8_t* data, size_t len, int check_crc,
-                          uint32_t si_bps, BitReader br, Plan* out,
-                          int64_t* err_pos, bool emit_groups, bool skim) {
-  size_t first_frame_byte = br.byte_pos();
-  Range<V> range;
-  range.skim = skim;
-  const char* force_seq = std::getenv("ZFLAC_TPU_SEQ_INDEX");
-  bool parallel_ok = false;
-  if (!(force_seq && force_seq[0] == '1')) {
-    int seq_err = OK;
-    parallel_ok = parallel_index<V>(data, len, check_crc, si_bps,
-                                    first_frame_byte, out, range, &seq_err,
-                                    emit_groups || skim);
-    if (parallel_ok && seq_err != OK) fail(seq_err);
-    if (!parallel_ok) {
-      range = Range<V>{};
-      range.skim = skim;
-    }
-  }
-  SeqCtx ctx;
-  if (!parallel_ok) {
-    seq_index<V>(data, len, check_crc, si_bps, br, out, range, ctx,
-                 emit_groups || skim);
-  }
-  pack_range<V>(range, si_bps, out);
-  (void)err_pos;
-  return OK;
-}
-
-// Pack a parsed Range into the dense C-ABI plan. Locked parameters come
-// from the first frame of the range.
-template <typename V>
-static void pack_range(Range<V>& range, uint32_t si_bps, Plan* out) {
-  uint32_t sample_rate = 0, channel_count_locked = 0, bits_per_sample = 0;
-  if (!range.frames.empty()) {
-    const FrameInfo& f0 = range.frames[0];
-    sample_rate = f0.frame_sr;
-    channel_count_locked = (uint32_t)channel_count(f0.ch_code);
-    bits_per_sample = (f0.bd_code == 0 || kBitDepth[f0.bd_code] < 0)
-        ? si_bps : (uint32_t)kBitDepth[f0.bd_code];
-  }
-
-  std::vector<int32_t> f_bs, f_chcode;
-  std::vector<int64_t> f_pcm, f_byte, f_coded;
-  uint64_t pcm_start = 0;
+static void pack_segments(std::vector<Range<V>>& segs, size_t keep,
+                          uint32_t si_bps, Plan* out) {
+  const ProfClock::time_point t_pack = ProfClock::now();
+  const size_t n = segs.size();
+  // Each segment's kept frames and subframes, and its first frame,
+  // subframe and PCM sample in the plan.
+  std::vector<uint64_t> nf(n), ns(n), f0(n + 1), s0(n + 1), p0(n + 1);
   uint32_t max_block = 0;
-  for (const FrameInfo& f : range.frames) {
-    f_bs.push_back((int32_t)f.block_size);
-    f_chcode.push_back((int32_t)f.ch_code);
-    f_pcm.push_back((int64_t)pcm_start);
-    f_byte.push_back(f.start_byte);
-    f_coded.push_back(f.coded_number);
-    pcm_start += f.block_size;
-    if (f.block_size > max_block) max_block = f.block_size;
+  bool groups = false, skim = false;
+  const FrameInfo* first = nullptr;
+  for (size_t s = 0; s < n; s++) {
+    const Range<V>& r = segs[s];
+    nf[s] = std::min<uint64_t>(r.frames.size(), keep - f0[s]);
+    uint64_t subs = 0, pcm = 0;
+    for (uint64_t i = 0; i < nf[s]; i++) {
+      const FrameInfo& f = r.frames[i];
+      subs += (uint64_t)channel_count(f.ch_code);
+      pcm += f.block_size;
+      if (f.block_size > max_block) max_block = f.block_size;
+    }
+    ns[s] = subs;
+    f0[s + 1] = f0[s] + nf[s];
+    s0[s + 1] = s0[s] + ns[s];
+    p0[s + 1] = p0[s] + pcm;
+    if (!first && nf[s]) first = &r.frames[0];
+    groups |= !r.g_at.empty();
+    skim |= r.skim;
   }
-  out->f_coded_number = alloc_copy(f_coded);
-  out->variable_blocking =
-      range.frames.empty() ? 0 : (int32_t)range.frames[0].variable_blocking;
-  std::vector<SubMeta>& subs = range.subs;
-  std::vector<V>& vals = range.vals;
+  const uint64_t F = f0[n], S = s0[n], B = max_block;
 
-  // ---- pack into the dense plan ----
-  uint64_t F = f_bs.size(), S = subs.size(), B = max_block;
-  out->sample_rate = sample_rate;
-  out->channels = channel_count_locked;
-  out->bits_per_sample = bits_per_sample;
+  out->sample_rate = first ? first->frame_sr : 0;
+  out->channels = first ? (uint32_t)channel_count(first->ch_code) : 0;
+  out->bits_per_sample =
+      !first ? 0
+      : (first->bd_code == 0 || kBitDepth[first->bd_code] < 0)
+          ? si_bps : (uint32_t)kBitDepth[first->bd_code];
+  out->variable_blocking = first ? (int32_t)first->variable_blocking : 0;
   out->num_frames = F;
   out->num_subframes = S;
   out->max_block = B;
-  out->total_samples = pcm_start;
+  out->total_samples = p0[n];
   out->value_width = (int32_t)sizeof(V);
 
-  out->f_block_size = alloc_copy(f_bs);
-  out->f_channel_code = alloc_copy(f_chcode);
-  out->f_pcm_start = alloc_copy(f_pcm);
-  out->f_byte_offset = alloc_copy(f_byte);
-
+  // Each array goes into `out` as soon as it is allocated, so that
+  // zfi_free releases what a failed allocation leaves behind.
+  int32_t* f_bs = out->f_block_size = alloc_n<int32_t>(F);
+  int32_t* f_ch = out->f_channel_code = alloc_n<int32_t>(F);
+  int64_t* f_pcm = out->f_pcm_start = alloc_n<int64_t>(F);
+  int64_t* f_byte = out->f_byte_offset = alloc_n<int64_t>(F);
+  int64_t* f_coded = out->f_coded_number = alloc_n<int64_t>(F);
   V* rows = nullptr;
-  if (!range.skim) {
-    rows = (V*)std::calloc(S * B ? S * B : 1, sizeof(V));
-    if (!rows) fail(E_UNIMPLEMENTED);
+  if (!skim) {
+    rows = alloc_n<V>(S * B);
+    out->rows = rows;
   }
-  int32_t* kind = (int32_t*)std::malloc((S + 1) * sizeof(int32_t));
-  int32_t* order = (int32_t*)std::malloc((S + 1) * sizeof(int32_t));
-  int32_t* wasted = (int32_t*)std::malloc((S + 1) * sizeof(int32_t));
-  int32_t* shift = (int32_t*)std::malloc((S + 1) * sizeof(int32_t));
-  int32_t* coeffs = (int32_t*)std::calloc(S * 32 ? S * 32 : 1,
-                                          sizeof(int32_t));
-  V* seeds = (V*)std::calloc(S * 4 ? S * 4 : 1, sizeof(V));
-  uint8_t* wide = (uint8_t*)std::malloc(S + 1);
-  if (!kind || !order || !wasted || !shift || !coeffs || !seeds || !wide)
-    fail(E_UNIMPLEMENTED);
-
-  for (uint64_t s = 0; s < S; s++) {
-    const SubMeta& sm = subs[s];
-    if (rows)
-      std::memcpy(rows + s * B, vals.data() + sm.val_off,
-                  sm.count * sizeof(V));
-    kind[s] = sm.kind;
-    order[s] = sm.order;
-    wasted[s] = sm.wasted;
-    shift[s] = sm.shift;
-    std::memcpy(coeffs + s * 32, sm.coeffs, 32 * sizeof(int32_t));
-    for (int j = 0; j < 4; j++) seeds[s * 4 + j] = (V)sm.seeds[j];
-    wide[s] = sm.wide;
-  }
-  out->rows = rows;
-  out->kind = kind;
-  out->order = order;
-  out->wasted = wasted;
-  out->shift = shift;
-  out->coeffs_rev = coeffs;
+  int32_t* kind = out->kind = alloc_n<int32_t>(S);
+  int32_t* order = out->order = alloc_n<int32_t>(S);
+  int32_t* wasted = out->wasted = alloc_n<int32_t>(S);
+  int32_t* shift = out->shift = alloc_n<int32_t>(S);
+  int32_t* coeffs = out->coeffs_rev = alloc_n<int32_t>(S * 32);
+  V* seeds = alloc_n<V>(S * 4);
   out->seeds = seeds;
-  out->wide = wide;
-
+  uint8_t* wide = out->wide = alloc_n<uint8_t>(S);
   // Rice-group offset table for the TPU unpack kernel (if recorded).
-  if (!range.g_at.empty()) {
-    uint32_t gpb = (uint32_t)((B + kGroupG - 1) / kGroupG);
+  const uint32_t gpb = groups ? (uint32_t)((B + kGroupG - 1) / kGroupG) : 0;
+  int64_t* goff = nullptr;
+  uint8_t *gk = nullptr, *gd = nullptr;
+  if (groups) {
     out->grp_per_row = (int32_t)gpb;
-    int64_t* goff = (int64_t*)std::malloc(
-        (S * gpb ? S * gpb : 1) * sizeof(int64_t));
-    uint8_t* gk = (uint8_t*)std::malloc(S * gpb + 1);
-    uint8_t* gd = (uint8_t*)std::calloc(S * gpb + 1, 1);
-    if (!goff || !gk || !gd) fail(E_UNIMPLEMENTED);
-    for (uint64_t i = 0; i < S * gpb; i++) goff[i] = -1;
-    std::memset(gk, 0xFF, S * gpb);
-    for (uint64_t s = 0; s < S; s++) {
-      const SubMeta& sm = subs[s];
-      for (uint32_t i = 0; i < sm.grp_n; i++) {
-        uint32_t gi = range.g_at[sm.grp_start + i] / kGroupG;
-        if (gi >= gpb) continue;
-        goff[s * gpb + gi] = range.g_off[sm.grp_start + i];
-        gk[s * gpb + gi] = range.g_k[sm.grp_start + i];
-        gd[s * gpb + gi] = range.g_depth[sm.grp_start + i];
+    goff = out->grp_off = alloc_n<int64_t>(S * gpb);
+    gk = out->grp_k = alloc_n<uint8_t>(S * gpb);
+    gd = out->grp_depth = alloc_n<uint8_t>(S * gpb);
+  }
+
+  run_each(n, [&](size_t s) {
+    Range<V>& r = segs[s];
+    uint64_t pcm = p0[s];
+    for (uint64_t i = 0; i < nf[s]; i++) {
+      const FrameInfo& f = r.frames[i];
+      const uint64_t g = f0[s] + i;
+      f_bs[g] = (int32_t)f.block_size;
+      f_ch[g] = (int32_t)f.ch_code;
+      f_pcm[g] = (int64_t)pcm;
+      f_byte[g] = f.start_byte;
+      f_coded[g] = f.coded_number;
+      pcm += f.block_size;
+    }
+    for (uint64_t j = 0; j < ns[s]; j++) {
+      const SubMeta& sm = r.subs[j];
+      const uint64_t g = s0[s] + j;
+      if (rows) {
+        V* row = rows + g * B;
+        std::memcpy(row, r.vals.data() + sm.val_off, sm.count * sizeof(V));
+        std::memset(row + sm.count, 0, (B - sm.count) * sizeof(V));
+      }
+      kind[g] = sm.kind;
+      order[g] = sm.order;
+      wasted[g] = sm.wasted;
+      shift[g] = sm.shift;
+      std::memcpy(coeffs + g * 32, sm.coeffs, 32 * sizeof(int32_t));
+      for (int k = 0; k < 4; k++) seeds[g * 4 + k] = (V)sm.seeds[k];
+      wide[g] = sm.wide;
+      if (groups) {
+        int64_t* go = goff + g * gpb;
+        uint8_t* gkr = gk + g * gpb;
+        uint8_t* gdr = gd + g * gpb;
+        for (uint32_t i = 0; i < gpb; i++) go[i] = -1;
+        std::memset(gkr, 0xFF, gpb);
+        std::memset(gdr, 0, gpb);
+        for (uint32_t i = 0; i < sm.grp_n; i++) {
+          uint32_t gi = r.g_at[sm.grp_start + i] / kGroupG;
+          if (gi >= gpb) continue;
+          go[gi] = r.g_off[sm.grp_start + i];
+          gkr[gi] = r.g_k[sm.grp_start + i];
+          gdr[gi] = r.g_depth[sm.grp_start + i];
+        }
       }
     }
-    out->grp_off = goff;
-    out->grp_k = gk;
-    out->grp_depth = gd;
-  }
+    std::vector<V>().swap(r.vals);
+  });
 
-  if (range.skim) {
+  if (skim) {
+    // Warm-ups and patches of the kept subframes, patches renumbered
+    // from their segment's subframes to the plan's.
+    std::vector<int32_t> warm, p_sub, p_pos, p_val;
+    for (size_t s = 0; s < n; s++) {
+      const SkimExtra& ex = segs[s].ex;
+      warm.insert(warm.end(), ex.warm.begin(), ex.warm.begin() + ns[s] * 32);
+      for (size_t i = 0; i < ex.p_sub.size(); i++) {
+        if ((uint64_t)ex.p_sub[i] >= ns[s]) continue;
+        p_sub.push_back(ex.p_sub[i] + (int32_t)s0[s]);
+        p_pos.push_back(ex.p_pos[i]);
+        p_val.push_back(ex.p_val[i]);
+      }
+    }
     out->skim = 1;
-    out->sk_warm = alloc_copy(range.ex.warm);
-    out->sk_patch_sub = alloc_copy(range.ex.p_sub);
-    out->sk_patch_pos = alloc_copy(range.ex.p_pos);
-    out->sk_patch_val = alloc_copy(range.ex.p_val);
-    out->sk_patch_n = (int64_t)range.ex.p_sub.size();
+    out->sk_warm = alloc_copy(warm);
+    out->sk_patch_sub = alloc_copy(p_sub);
+    out->sk_patch_pos = alloc_copy(p_pos);
+    out->sk_patch_val = alloc_copy(p_val);
+    out->sk_patch_n = (int64_t)p_sub.size();
   }
+  out->pack_segments = (int32_t)n;
+  out->pack_ns = elapsed_ns(t_pack, ProfClock::now());
+}
+
+// Index the whole stream: the parallel parse where it can run, else (or
+// after its fallback) one sequential scan, which packs as one segment.
+// ZFLAC_TPU_SEQ_INDEX=1 forces the sequential scan.
+template <typename V>
+static int index_stream_t(const uint8_t* data, size_t len, int check_crc,
+                          uint32_t si_bps, BitReader br, Plan* out,
+                          bool emit_groups = false, bool skim = false) {
+  const ProfClock::time_point t_parse = ProfClock::now();
+  std::vector<Range<V>> segs;
+  size_t keep = 0;
+  ParallelIndex par = ParallelIndex::kNotTried;
+  const char* force_seq = std::getenv("ZFLAC_TPU_SEQ_INDEX");
+  if (!(force_seq && force_seq[0] == '1')) {
+    int seq_err = OK;
+    par = parallel_index<V>(data, len, check_crc, si_bps, br.byte_pos(),
+                            out, skim, segs, &keep, &seq_err,
+                            emit_groups || skim);
+    if (par == ParallelIndex::kDone && seq_err != OK) fail(seq_err);
+  }
+  if (par != ParallelIndex::kDone) {
+    segs.assign(1, Range<V>{});
+    segs[0].skim = skim;
+    SeqCtx ctx;
+    seq_index<V>(data, len, check_crc, si_bps, br, out, segs[0], ctx,
+                 emit_groups || skim);
+    keep = segs[0].frames.size();
+  }
+  out->index_fallback = par == ParallelIndex::kFellBack ? 1 : 0;
+  out->parse_ns = elapsed_ns(t_parse, ProfClock::now());
+  pack_segments<V>(segs, keep, si_bps, out);
+  return OK;
 }
 
 // ---- full scalar CPU decoder ----
@@ -2743,7 +2749,8 @@ int zfi_index_range(const uint8_t* data, size_t len, uint64_t start_byte,
   // resynchronizes from there with zfi_find_anchor).
   auto run = [&](auto tag) -> int {
     using V = decltype(tag);
-    Range<V> range;
+    std::vector<Range<V>> segs(1);
+    Range<V>& range = segs[0];
     range.vals.reserve((size_t)(stop_byte - start_byte));
     BitReader br{data, len, start_byte * 8};
     int err = OK;
@@ -2770,7 +2777,7 @@ int zfi_index_range(const uint8_t* data, size_t len, uint64_t start_byte,
       }
     }
     *landed = (int64_t)br.byte_pos();
-    pack_range<V>(range, bps, out);
+    pack_segments<V>(segs, range.frames.size(), bps, out);
     return err;
   };
   try {
@@ -2844,9 +2851,9 @@ int zfi_index_ex(const uint8_t* data, size_t len, int check_crc,
     uint32_t aligned = (bps + 7) & ~7u;
     if (aligned <= 16)
       return index_stream_t<int32_t>(data, len, check_crc, bps, br, out,
-                                     err_pos, emit_groups != 0);
+                                     emit_groups != 0);
     return index_stream_t<int64_t>(data, len, check_crc, bps, br, out,
-                                   err_pos, emit_groups != 0);
+                                   emit_groups != 0);
   } catch (const Thrown& t) {
     if (err_pos) *err_pos = 0;
     return t.code;
@@ -2876,7 +2883,7 @@ int zfi_index_skim(const uint8_t* data, size_t len, int check_crc,
     uint32_t aligned = (bps + 7) & ~7u;
     if (aligned > 16) return 100;
     return index_stream_t<int32_t>(data, len, check_crc, bps, br, out,
-                                   err_pos, true, true);
+                                   true, true);
   } catch (const Thrown& t) {
     if (err_pos) *err_pos = 0;
     return t.code;
@@ -2897,7 +2904,8 @@ int zfi_skim_range(const uint8_t* data, size_t len, uint64_t start_byte,
   uint32_t aligned = (bps + 7) & ~7u;
   if (aligned > 16) return 100;
   try {
-    Range<int32_t> range;
+    std::vector<Range<int32_t>> segs(1);
+    Range<int32_t>& range = segs[0];
     range.skim = true;
     BitReader br{data, len, start_byte * 8};
     int err = OK;
@@ -2928,7 +2936,7 @@ int zfi_skim_range(const uint8_t* data, size_t len, uint64_t start_byte,
       }
     }
     *landed = (int64_t)br.byte_pos();
-    pack_range<int32_t>(range, bps, out);
+    pack_segments<int32_t>(segs, range.frames.size(), bps, out);
     return err;
   } catch (const Thrown& t) {
     return t.code;

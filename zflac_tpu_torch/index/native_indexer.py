@@ -15,6 +15,7 @@ import os
 import platform
 import subprocess
 import threading
+import weakref
 
 import numpy as np
 
@@ -118,6 +119,10 @@ class _Plan(ctypes.Structure):
         ("computed_md5", ctypes.c_uint8 * 16),
         ("md5_state", ctypes.c_int32),
         ("_pad5", ctypes.c_int32),
+        ("parse_ns", ctypes.c_int64),
+        ("pack_ns", ctypes.c_int64),
+        ("pack_segments", ctypes.c_int32),
+        ("index_fallback", ctypes.c_int32),
     ]
 
 
@@ -476,9 +481,14 @@ def _as_array(ptr, shape, dtype):
 def build_plan_native(data: bytes, check_crc: bool = False,
                       emit_groups: bool = False) -> StreamPlan:
     """emit_groups: also record the Rice-group offset table, which
-    ops/rice.py `rows_from_groups` decodes. Records the C++ index's
-    `plan_index_ms` and the copy of its arrays into the StreamPlan,
-    `plan_convert_ms`, in the open call (utils/timer.py)."""
+    ops/rice.py `rows_from_groups` decodes. Records in the open call
+    (utils/timer.py) the C++ index's `plan_index_ms` and the hand-over
+    of its arrays to the StreamPlan, `plan_convert_ms`; the index's two
+    phases on C++'s steady clock, `plan_parse_ms` (the frame parse) and
+    `plan_pack_ms` (the pack into the plan's arrays); `plan_segments`,
+    the segments packed, one thread each (1 for one sequential scan);
+    and `plan_fallbacks`, 1 when the parallel parse fell back to the
+    sequential scan."""
     lib = _load()
     assert lib is not None
     plan = _Plan()
@@ -490,6 +500,10 @@ def build_plan_native(data: bytes, check_crc: bool = False,
     if rc != 0:
         msg = "frame CRC mismatch" if rc == 9 else ""
         raise ERROR_MAP.get(rc, err.Unimplemented)(msg)
+    count("plan_parse_ms", plan.parse_ns / 1e6)
+    count("plan_pack_ms", plan.pack_ns / 1e6)
+    count("plan_segments", plan.pack_segments)
+    count("plan_fallbacks", plan.index_fallback)
     try:
         with span("plan.convert"):
             return _plan_to_streamplan(plan, _stream_info(plan))
@@ -601,6 +615,23 @@ def index_range(data: bytes, start_byte: int, stop_byte: int,
         lib.zfi_free(ctypes.byref(plan))
 
 
+def _take_rows(plan, shape, dtype) -> np.ndarray:
+    """The plan's rows, not copied: the array's buffer is the C
+    allocation, which the plan gives up (zfi_free then skips it) and a
+    finalizer frees when the array is collected (not at interpreter
+    exit, when a view may still be alive)."""
+    n = int(np.prod(shape))
+    if n == 0:
+        return np.zeros(shape, dtype=dtype)
+    ptr = plan.rows
+    cbuf = (np.ctypeslib.as_ctypes_type(dtype) * n).from_address(ptr)
+    rows = np.frombuffer(cbuf, dtype=dtype).reshape(shape)
+    weakref.finalize(cbuf, _load().zfi_free_samples,
+                     ctypes.c_void_p(ptr)).atexit = False
+    plan.rows = None
+    return rows
+
+
 def _plan_to_streamplan(plan, info: StreamInfo) -> StreamPlan:
     S = int(plan.num_subframes)
     F = int(plan.num_frames)
@@ -618,7 +649,7 @@ def _plan_to_streamplan(plan, info: StreamInfo) -> StreamPlan:
         frame_byte_offset=_as_array(plan.f_byte_offset, (F,), np.int64),
         coded_number=_as_array(plan.f_coded_number, (F,), np.int64),
         variable_blocking=bool(plan.variable_blocking),
-        rows=None if skim else _as_array(plan.rows, (S, B), vdtype),
+        rows=None if skim else _take_rows(plan, (S, B), vdtype),
         kind=_as_array(plan.kind, (S,), np.int32),
         order=_as_array(plan.order, (S,), np.int32),
         wasted=_as_array(plan.wasted, (S,), np.int32),
@@ -658,8 +689,6 @@ def decode_native_parallel(data: bytes, check_crc: bool = False,
 
     The returned array *borrows* the C buffer (no copy); a finalizer
     frees it when the array is collected."""
-    import weakref
-
     lib = _load()
     assert lib is not None
     plan = _Plan()

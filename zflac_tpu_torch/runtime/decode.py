@@ -360,7 +360,9 @@ def decode(data: bytes, check_crc: bool = False, verify_md5: bool = True,
 
     The torch engine's `stats` hold the call's host-clock phases
     (utils/timer.py): `plan_ms` (build_plan: `plan_index_ms`,
-    `plan_convert_ms` with the C++ indexer), `reconstruct_ms`
+    `plan_convert_ms` with the C++ indexer, and its `plan_parse_ms`,
+    `plan_pack_ms`, `plan_segments` and `plan_fallbacks`),
+    `reconstruct_ms`
     (`reconstruct_stage_ms`, `reconstruct_upload_ms`,
     `reconstruct_launch_ms`, `reconstruct_wait_ms`, `assemble_ms`) and
     `finish_ms` (`finish_md5_ms`, `finish_normalize_ms`), and the fixed
